@@ -20,10 +20,11 @@ Phases (any failed check exits nonzero; nothing is caught and passed over):
    suspect flags equal, stats columns 0-5 and fb/fq within the read length
    exact on rows neither side flags, and every row equal to the host twin
    over the oracle-patched columns once the suspect rows went through
-   ``filter_resolve_suspect_rows`` and the host filter pass); K1-f also at
-   its tiling edges (reads of 1-300 rows, L 4-2048, Q0-class observations,
-   1, 37 and 40,000 reads), each check line with K1-f's launch geometry
-   (grid, warps per block, shared bytes, blocks per SM) and registers;
+   ``filter_resolve_suspect_rows`` and the host filter pass); both also at
+   their tiling edges (reads of 1-300 rows, L 4-2048, Q0-class
+   observations, 1, 37 and 40,000 reads; K1 also three 600-row families),
+   each check line with the kernel's launch geometry (grid, warps per
+   block, shared bytes, blocks per SM) and registers;
 3. end to end through the port's CLI, each case's cuda run between a reset
    and a read of the launch counts, its records equal to the ``--device
    cpu`` run's:
@@ -334,7 +335,9 @@ def check_wire_kernel(name, codes, quals, starts, dev, timed: bool):
            "families": J, "suspect_kernel": int(sk.sum()),
            "suspect_plain": int(sr.sum()),
            "suspect_only_kernel": int((sk & ~sr).sum()),
-           "suspect_only_plain": int((sr & ~sk).sum()), "max_abs_err": err}
+           "suspect_only_plain": int((sr & ~sk).sum()), "max_abs_err": err,
+           "geometry": cuda_kernel.full_launch_geometry(L, J, dev),
+           "registers": ptxas_registers("consensus_wire_full_kernel")}
     if timed:
         # each input read once, each output written once
         res["bytes"] = (N * L + (J + 1) * 4 + 64 * 4
@@ -492,29 +495,35 @@ def kernel_phase_test_shapes(dev):
                             + ("_q0" if q0 else ""), codes, quals, starts,
                             lens.astype(np.int32), dev, timed=False,
                             f_min_reads=fam)
-    # K1-f's tiling edges: reads of 1-300 rows in one batch at widths from
-    # 4 to 2048 (staged whole or in 32-column strips of row chunks; from 336
-    # on the byte table and the slices of a block pass 48 KB of shared
-    # memory), Q0-class observations in ragged reads, fewer reads than the
-    # persistent grid has warps, and more than one pass of it
+    # the tiling edges of both kernels: reads of 1-300 rows in one batch at
+    # widths from 4 to 2048 (staged whole or in 32-column strips of row
+    # chunks; from 336 on the byte table and the slices of a block pass 48
+    # KB of shared memory), Q0-class observations in ragged reads, fewer
+    # reads than the persistent grid has warps, and more than one pass of
+    # it; K1 also three 600-row families at L 16 (the strip path's chunks)
     ragged = (5, 300, 1, 50, 2, 5, 1, 50, 300, 2)
-    cases = [(f"k1f_ragged_x{L}", ragged, L, False, False)
+    cases = [(f"ragged_x{L}", ragged, L, False, False)
              for L in (4, 36, 152, 304, 336, 380, 2048)]
-    cases += [("k1f_ragged_x152_q0", ragged, 152, True, False),
-              ("k1f_1read_x152", (3,), 152, False, False),
-              ("k1f_37reads_x152", tuple(np.arange(37) % 7 + 1), 152, False,
+    cases += [("ragged_x152_q0", ragged, 152, True, False),
+              ("1read_x152", (3,), 152, False, False),
+              ("37reads_x152", tuple(np.arange(37) % 7 + 1), 152, False,
                False),
-              ("k1f_40000reads_x152", tuple(np.random.default_rng(4).integers(
-                  1, 9, size=40000)), 152, False, True)]
+              ("40000reads_x152", tuple(np.random.default_rng(4).integers(
+                  1, 9, size=40000)), 152, False, True),
+              ("deep_3x600_x16", (600, 600, 600), 16, False, False)]
     for name, sizes, L, q0, family in cases:
         seed = len(sizes) + L
         if family:
             codes, quals, starts = family_batch(sizes, L, seed)
         else:
             codes, quals, starts = ragged_batch(sizes, L, seed, q0=q0)
+        check_wire_kernel(f"k1_{name}", codes, quals, starts, dev,
+                          timed=False)
+        if name.startswith("deep"):
+            continue
         lens = np.random.default_rng(seed).integers(
             max(L - 7, 0), L + 1, size=len(sizes)).astype(np.int32)
-        check_filter_kernel(name, codes, quals, starts, lens, dev,
+        check_filter_kernel(f"k1f_{name}", codes, quals, starts, lens, dev,
                             timed=False)
 
 

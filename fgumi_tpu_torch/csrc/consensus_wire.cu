@@ -1,41 +1,52 @@
-// Wire consensus kernels for Hopper (sm_90a): K1, the full-column kernel
-// described here, and K1-f, the fused consensus->filter kernel further down,
-// which shares K1's accumulation and column epilogue.
+// Wire consensus kernels for Hopper (sm_90a): K1, the full-column kernel,
+// and K1-f, the fused consensus->filter kernel. Both run one design and
+// share its read loop; they differ only in what a finished column stores.
 //
 // K1 replaces the Pallas TPU kernel fgumi_tpu/ops/pallas_kernel.py
 // `_consensus_kernel` (with its `_pack_split` packing and the
-// `_full_jit`/`call_full` wrapper): per UMI family (segment) and position,
-// the dictionary lookup of the f32 match contribution, the 4-lane
-// contribution/observation sums plus a poison count for nonfinite entries,
-// the first-max winner, the loser-gap posterior, the two-trials pre-UMI
-// combine, the Phred conversion, the suspect guard band and the no-call
-// rules, then the split packing: qs = qual | suspect << 7 (1 B), wp = 2-bit
-// winners 4 per byte, and u16 depth/errors.
+// `_full_jit`/`call_full` wrapper): per UMI family (segment, one consensus
+// read) and position, the dictionary lookup of the f32 match contribution,
+// the 4-lane contribution/observation sums plus a poison count for
+// nonfinite entries, the first-max winner, the loser-gap posterior, the
+// two-trials pre-UMI combine, the Phred conversion, the suspect guard band
+// and the no-call rules, then the split packing: qs = qual | suspect << 7
+// (1 B), wp = 2-bit winners 4 per byte, and u16 depth/errors.
 //
 // Bound: memory. Each observation is read once (1 B of wire) and each
 // output column is written once (qs 1 B + wp 0.25 B + depth 2 B + errors 2 B
 // = 5.25 B); the arithmetic is a handful of f32 ops per observation and ~40
 // transcendental-free ops plus 6 expf/logf/log1pf per output column.
 //
-// Design: the TPU kernel walked a sequential (segment tile, row window)
-// grid and carried the sums in VMEM scratch between grid steps. Hopper
-// blocks run unordered, so here one block owns one family: it loops over
-// the family's rows [starts[f], starts[f+1]) itself, and each thread owns 4
-// consecutive positions (one 4-byte wire word per row, one wp byte out),
-// keeping the 4x(4 contrib + 4 obs) + 4 poison accumulators in registers.
-// Neighbouring threads read neighbouring words of a row, so every row read
-// is coalesced. The 64-entry dictionary sits in shared memory.
+// Design (Hopper): the TPU kernel walked a sequential (segment tile, row
+// window) grid and carried the sums in VMEM scratch between grid steps.
+// Here one warp owns one consensus read, on a persistent grid.
+// - A block holds kWarps warps; the grid is SMs x resident blocks (from
+//   the occupancy query at first use), capped by the reads, and warp w
+//   takes reads w, w + all warps, ... Every output is one warp's own work,
+//   so none depends on the schedule, and there is no __syncthreads per read.
+// - A read's rows [starts[f], starts[f+1]) are one contiguous span of n*L
+//   bytes. The warp copies it into its own slice of shared memory with
+//   cp.async (16 B over the 16-byte-aligned body, 4 B at the ends), waits
+//   once, then accumulates from shared memory. A read larger than the slice,
+//   or with more than 255 rows, goes in 32-column strips of row chunks, the
+//   sums carried in registers. Any row count and any L % 4 == 0 are taken.
+// - A lane owns one position per step (32 consecutive positions), so at
+//   L = 152 five steps keep 95% of the lanes busy, the accumulators are 4
+//   f32 sums + 4 counts + a poison count, and the byte planes (32 B) and
+//   u16 planes (64 B) leave as one coalesced segment per warp step. The wp
+//   byte of 4 positions is OR-combined across 4 lanes with shuffles.
+// - An observation costs one shared byte load and one lookup in a per-block
+//   table of the 256 wire bytes (4 lane terms, a packed count and a poison
+//   increment): 4 float adds and 2 integer adds, no compares or selects.
 //
 // Numerics: f32 throughout with libdevice expf/logf/log1pf (no fast-math).
 // The guard band (fgumi_tpu_torch/ops/kernel.py) holds for summing the
-// nonnegative terms in any order, so a non-suspect position is exact.
+// nonnegative terms in any order, so a non-suspect position is exact; the
+// rows of a position are summed in ascending order all the same, so the
+// sums equal those of a compare-and-select loop over the rows bit for bit.
 // Nonfinite dictionary entries are zeroed per observation and counted in
 // `poison`, which forces the suspect flag at the cells they touch (adding
 // -inf to one lane alone would lose the all-lane NaN that flags them).
-//
-// K1 is simple and exact; K1-f below has the Hopper design (one warp per
-// consensus read, rows staged with cp.async, a persistent grid), which K1
-// is to take next.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -128,141 +139,21 @@ __device__ __forceinline__ void column_epilogue(
     *suspect_out = suspect;
 }
 
-// One thread's 4 positions (4-position group g) of one family: the lane
-// contribution/observation sums and poison counts over rows [r0, r1).
-__device__ __forceinline__ void accumulate_group(
-        const uint32_t* __restrict__ words, const float* sdict, int r0, int r1,
-        int G, int g, float c[4][4], int o[4][4], int pois[4]) {
-#pragma unroll
-    for (int p = 0; p < 4; ++p) {
-        pois[p] = 0;
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-            c[p][b] = 0.0f;
-            o[p][b] = 0;
-        }
-    }
-    const uint32_t* row = words + (size_t)r0 * G + g;
-    for (int r = r0; r < r1; ++r, row += G) {
-        const uint32_t w4 = __ldg(row);
-#pragma unroll
-        for (int p = 0; p < 4; ++p) {
-            const uint32_t byte = (w4 >> (8 * p)) & 0xFFu;
-            const uint32_t q = byte >> 2;
-            const uint32_t code = byte & 3u;
-            if (q != 63u) {
-                const float d = sdict[q];
-                const bool fin = isfinite(d);
-                const float dv = fin ? d : 0.0f;
-                pois[p] += fin ? 0 : 1;
-#pragma unroll
-                for (int b = 0; b < 4; ++b) {
-                    const bool hit = code == (uint32_t)b;
-                    c[p][b] += hit ? dv : 0.0f;
-                    o[p][b] += hit ? 1 : 0;
-                }
-            }
-        }
-    }
-}
-
-__global__ void consensus_wire_full_kernel(
-        const uint8_t* __restrict__ wire, const int32_t* __restrict__ starts,
-        const float* __restrict__ dict, float pre, Constants k, int L,
-        uint8_t* __restrict__ qs, uint8_t* __restrict__ wp,
-        uint16_t* __restrict__ depth_out, uint16_t* __restrict__ errors_out) {
-    __shared__ float sdict[64];
-    for (int i = threadIdx.x; i < 64; i += blockDim.x) sdict[i] = dict[i];
-    __syncthreads();
-
-    const int f = blockIdx.x;
-    const int r0 = starts[f];
-    const int r1 = starts[f + 1];
-    const int G = L >> 2;  // 4-position groups per row
-    const uint32_t* words = reinterpret_cast<const uint32_t*>(wire);
-
-    for (int g = threadIdx.x; g < G; g += blockDim.x) {
-        float c[4][4];
-        int o[4][4];
-        int pois[4];
-        accumulate_group(words, sdict, r0, r1, G, g, c, o, pois);
-        uint32_t wbyte = 0;
-#pragma unroll
-        for (int p = 0; p < 4; ++p) {
-            int win, qual, depth, errors;
-            bool suspect;
-            column_epilogue(c[p], o[p], pois[p], pre, k, &win, &qual, &depth,
-                            &errors, &suspect);
-            const size_t col = (size_t)f * L + 4 * g + p;
-            qs[col] = (uint8_t)(qual | (suspect ? 0x80 : 0));
-            depth_out[col] = (uint16_t)depth;
-            errors_out[col] = (uint16_t)errors;
-            wbyte |= (uint32_t)(win > 3 ? 0 : win) << (2 * p);
-        }
-        wp[(size_t)f * G + g] = (uint8_t)wbyte;
-    }
-}
-
 // ---------------------------------------------------------------------------
-// K1-f: the fused consensus->filter kernel.
-//
-// Replaces the Pallas dispatch fgumi_tpu/ops/pallas_kernel.py `_filter_jit` /
-// `call_filter` (the same `_consensus_kernel` body plus the jnp filter
-// epilogue that ran outside it). Per position, after K1's column epilogue:
-// the consensus thresholds (low depth -> N/Q0, low qual -> N/Q2), the
-// simplex per-base filter mask as integer compares (d16 < min_reads,
-// e16 >= emin[d16] where emin is the exact integer reformulation of the f64
-// per-base error-rate test, and tq < min_base_q), and the position's share
-// of the 7 per-read stats over positions < lens[f].
-//
-// Bound: memory, as K1. Per output column it writes fb, fq (1 B each),
-// depth/errors (2 B each), qs (1 B) and a quarter wp byte = 7.25 B, plus a
-// 28 B stats row per read. The 32768-entry int32 emin table (128 KB) is read
-// through __ldg and stays in L2; only the entries the data touches load.
-//
-// Design (Hopper): one warp per consensus read, on a persistent grid.
-// - A block holds kFilterWarps warps; the grid is SMs x resident blocks,
-//   capped by the reads, and warp w takes reads w, w + all warps, ... Every
-//   output is one warp's own work, so none depends on the schedule, and the
-//   stats row reduces with warp shuffles alone (max for column 0, or for
-//   column 6, wrapping u32 sums for the rest); lane 0 writes it. There is no
-//   shared slot and no __syncthreads per read.
-// - A read's rows [starts[f], starts[f+1]) are one contiguous span of n*L
-//   bytes. The warp copies it into its own slice of shared memory with
-//   cp.async (16 B over the 16-byte-aligned body, 4 B at the ends), waits
-//   once, then accumulates from shared memory. A read larger than the slice,
-//   or with more than 255 rows, goes in 32-column strips of row chunks, the
-//   sums carried in registers. Any row count and any L % 4 == 0 are taken.
-// - A lane owns one position per step (32 consecutive positions), so at
-//   L = 152 five steps keep 95% of the lanes busy, the accumulators are 4
-//   f32 sums + 4 counts + a poison count, and qs/fb/fq (32 B) and
-//   depth/errors (64 B) leave as one coalesced segment per warp step. The
-//   wp byte of 4 positions is OR-combined across 4 lanes with shuffles.
-// - An observation costs one shared byte load and one lookup in a per-block
-//   table of the 256 wire bytes (4 lane terms, a packed count and a poison
-//   increment): 4 float adds and 2 integer adds, no compares or selects.
-// Rows are summed in ascending order per position, as before, so the f32
-// results do not change.
+// The read loop both kernels share.
 
-struct FilterParams {
-    int min_reads_c;   // consensus --min-reads
-    int min_qual_c;    // consensus --min-consensus-base-quality
-    int f_min_reads;   // filter per-base min depth
-    int f_min_base_q;  // filter --min-base-quality (< 0: off)
-    int per_base;      // records carry cd/ce: depth/error masks apply
-};
-
-constexpr int kStatsCols = 7;
-constexpr int kI16Max = 32767;
-constexpr int kFilterWarps = 8;
-constexpr int kFilterThreads = 32 * kFilterWarps;
-constexpr int kFilterMinBlocks = 4;  // caps registers at 64 a thread
-constexpr int kMaxTileRows = 255;    // rows the packed 8-bit counts take
-constexpr int kMinSlice = 2048;      // shared bytes of a warp's slice
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+// Resident blocks a kernel is compiled for: 4 cap a thread at 64 registers,
+// which both kernels fit without spills; 5 cap it at 48, where each spills
+// and is slower on the main path's longtail batches (PERF.md).
+constexpr int kMinBlocks = 4;
+constexpr int kMaxTileRows = 255;  // rows the packed 8-bit counts take
+constexpr int kMinSlice = 2048;    // shared bytes of a warp's slice
 constexpr int kMaxSlice = 6144;
-// the most dynamic shared memory a block takes: 8 of the widest slices,
-// each with its 16 spare bytes
-constexpr int kFilterMaxSmem = kFilterWarps * (kMaxSlice + 16);
+// the most dynamic shared memory a block takes: kWarps of the widest
+// slices, each with its 16 spare bytes
+constexpr int kMaxSmem = kWarps * (kMaxSlice + 16);
 constexpr unsigned kFullMask = 0xFFFFFFFFu;
 
 __device__ __forceinline__ void cp_async4(void* sdst, const void* gsrc) {
@@ -320,12 +211,12 @@ __device__ __forceinline__ const uint8_t* stage_tile(
     return dst;
 }
 
-// K1-f's per-byte observation table: a wire byte (dictionary index q << 2 |
+// The per-byte observation table: a wire byte (dictionary index q << 2 |
 // base code) maps to the 4 lane terms it adds (its dictionary entry in its
 // base's lane, zeroed when nonfinite, +0 in the others; all +0 for q = 63,
 // no observation), its count increment (one in its base's 8-bit field of a
 // packed u32) and its poison increment. Adding +0 leaves a sum unchanged, so
-// this equals the compare-and-select of `accumulate_group` bit for bit.
+// this equals a compare-and-select on the base code bit for bit.
 struct ObsTable {
     float4 terms[256];
     uint2 incs[256];  // x: packed base counts, y: poison
@@ -373,6 +264,138 @@ __device__ __forceinline__ void accumulate_column(
     for (int b = 0; b < 4; ++b) o[b] += (int)((counts >> (8 * b)) & 0xFFu);
 }
 
+// One consensus read of n rows (its rows one span at `span`, pitch L)
+// through the warp: stages the rows into the warp's slice, sums every
+// position and hands each finished position to
+// finish(c, o, pois, valid, pos). All 32 lanes call it and every lane calls
+// `finish` on every step (the wp shuffles); lanes past L pass valid = false.
+template <class Finish>
+__device__ __forceinline__ void consensus_read(
+        const uint8_t* span, int n, int L, int slice_bytes, uint8_t* slice,
+        const ObsTable& table, int lane, const Finish& finish) {
+    if (n <= kMaxTileRows && (long long)n * L <= slice_bytes) {
+        // the whole span in one tile
+        const uint8_t* tile = stage_tile(slice, span, n, L, L, lane);
+        for (int p0 = 0; p0 < L; p0 += 32) {
+            const int p = p0 + lane;
+            const bool valid = p < L;
+            float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+            int o[4] = {0, 0, 0, 0};
+            int pois = 0;
+            accumulate_column(tile + p, L, valid ? n : 0, table, c, o, pois);
+            finish(c, o, pois, valid, p);
+        }
+    } else {
+        // 32-column strips of row chunks, the sums in registers
+        const int chunk_rows = min(slice_bytes / 32, kMaxTileRows);
+        for (int ca = 0; ca < L; ca += 32) {
+            const int cw = min(32, L - ca);
+            const bool valid = lane < cw;
+            float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+            int o[4] = {0, 0, 0, 0};
+            int pois = 0;
+            for (int ra = 0; ra < n; ra += chunk_rows) {
+                const int rows = min(chunk_rows, n - ra);
+                const uint8_t* tile = stage_tile(
+                    slice, span + (size_t)ra * L + ca, rows, cw, L, lane);
+                accumulate_column(tile + lane, cw, valid ? rows : 0, table, c,
+                                  o, pois);
+            }
+            finish(c, o, pois, valid, ca + lane);
+        }
+    }
+}
+
+// The 2-bit winners of 4 aligned positions (4 lanes) as one wp byte. All
+// 32 lanes call it; a lane past L adds nothing.
+__device__ __forceinline__ uint32_t wp_byte(int win, bool valid, int pos) {
+    uint32_t wbits =
+        valid ? (uint32_t)(win > 3 ? 0 : win) << (2 * (pos & 3)) : 0u;
+    wbits |= __shfl_xor_sync(kFullMask, wbits, 1);
+    wbits |= __shfl_xor_sync(kFullMask, wbits, 2);
+    return wbits;
+}
+
+// ---------------------------------------------------------------------------
+// K1: per position, the column epilogue and the split packing.
+
+struct FullOut {
+    uint8_t* qs;
+    uint8_t* wp;
+    uint16_t* depth;
+    uint16_t* errors;
+};
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+consensus_wire_full_kernel(
+        const uint8_t* __restrict__ wire, const int32_t* __restrict__ starts,
+        const float* __restrict__ dict, float pre, Constants k, int L,
+        int num_segments, int slice_bytes, FullOut out) {
+    __shared__ ObsTable table;
+    extern __shared__ __align__(16) uint8_t stage_mem[];
+    build_obs_table(dict, table);
+    __syncthreads();
+
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    uint8_t* slice = stage_mem + warp * (slice_bytes + 16);
+    const int stride = gridDim.x * kWarps;
+    for (int f = blockIdx.x * kWarps + warp; f < num_segments;
+         f += stride) {
+        const int r0 = starts[f];
+        const size_t row = (size_t)f * L;
+        auto finish = [=](const float c[4], const int o[4], int pois,
+                          bool valid, int pos) {
+            int win, qual, depth, errors;
+            bool suspect;
+            column_epilogue(c, o, pois, pre, k, &win, &qual, &depth, &errors,
+                            &suspect);
+            const uint32_t wbits = wp_byte(win, valid, pos);
+            if (valid) {
+                const size_t col = row + pos;
+                out.qs[col] = (uint8_t)(qual | (suspect ? 0x80 : 0));
+                out.depth[col] = (uint16_t)depth;
+                out.errors[col] = (uint16_t)errors;
+                if ((pos & 3) == 0) out.wp[col >> 2] = (uint8_t)wbits;
+            }
+        };
+        consensus_read(wire + (size_t)r0 * L, starts[f + 1] - r0, L,
+                       slice_bytes, slice, table, lane, finish);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// K1-f: the fused consensus->filter kernel.
+//
+// Replaces the Pallas dispatch fgumi_tpu/ops/pallas_kernel.py `_filter_jit` /
+// `call_filter` (the same `_consensus_kernel` body plus the jnp filter
+// epilogue that ran outside it). Per position, after K1's column epilogue:
+// the consensus thresholds (low depth -> N/Q0, low qual -> N/Q2), the
+// simplex per-base filter mask as integer compares (d16 < min_reads,
+// e16 >= emin[d16] where emin is the exact integer reformulation of the f64
+// per-base error-rate test, and tq < min_base_q), and the position's share
+// of the 7 per-read stats over positions < lens[f].
+//
+// Bound: memory, as K1. Per output column it writes fb, fq (1 B each),
+// depth/errors (2 B each), qs (1 B) and a quarter wp byte = 7.25 B, plus a
+// 28 B stats row per read. The 32768-entry int32 emin table (128 KB) is read
+// through __ldg and stays in L2; only the entries the data touches load.
+//
+// Design: K1's, with one owner per read, so the stats row reduces with warp
+// shuffles alone (max for column 0, or for column 6, wrapping u32 sums for
+// the rest) and lane 0 writes it; there is no shared slot.
+
+struct FilterParams {
+    int min_reads_c;   // consensus --min-reads
+    int min_qual_c;    // consensus --min-consensus-base-quality
+    int f_min_reads;   // filter per-base min depth
+    int f_min_base_q;  // filter --min-base-quality (< 0: off)
+    int per_base;      // records carry cd/ce: depth/error masks apply
+};
+
+constexpr int kStatsCols = 7;
+constexpr int kI16Max = 32767;
+
 struct FilterOut {
     int32_t* stats;
     uint8_t* fb;
@@ -396,11 +419,7 @@ __device__ __forceinline__ void finish_column(
     bool suspect;
     column_epilogue(c, o, pois, pre, k, &win, &qual, &depth, &errors,
                     &suspect);
-    // 2-bit winners of 4 positions (4 aligned lanes) into one wp byte
-    uint32_t wbits =
-        valid ? (uint32_t)(win > 3 ? 0 : win) << (2 * (pos & 3)) : 0u;
-    wbits |= __shfl_xor_sync(kFullMask, wbits, 1);
-    wbits |= __shfl_xor_sync(kFullMask, wbits, 2);
+    const uint32_t wbits = wp_byte(win, valid, pos);
 
     const bool low_depth = depth < fp.min_reads_c;
     const bool low_qual = qual < fp.min_qual_c;
@@ -435,7 +454,7 @@ __device__ __forceinline__ void finish_column(
     s[6] |= (in_len && suspect) ? 1u : 0u;
 }
 
-__global__ void __launch_bounds__(kFilterThreads, kFilterMinBlocks)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 consensus_wire_filter_kernel(
         const uint8_t* __restrict__ wire, const int32_t* __restrict__ starts,
         const float* __restrict__ dict, float pre, Constants k, int L,
@@ -450,49 +469,20 @@ consensus_wire_filter_kernel(
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
     uint8_t* slice = stage_mem + warp * (slice_bytes + 16);
-    const int stride = gridDim.x * kFilterWarps;
-    for (int f = blockIdx.x * kFilterWarps + warp; f < num_segments;
+    const int stride = gridDim.x * kWarps;
+    for (int f = blockIdx.x * kWarps + warp; f < num_segments;
          f += stride) {
         const int r0 = starts[f];
-        const int n = starts[f + 1] - r0;
         const int len_f = lens[f];
-        const uint8_t* span = wire + (size_t)r0 * L;
         const size_t row = (size_t)f * L;
         uint32_t s[kStatsCols] = {0u, 0u, 0u, 0u, 0u, 0u, 0u};
-        if (n <= kMaxTileRows && (long long)n * L <= slice_bytes) {
-            // the whole span in one tile
-            const uint8_t* tile = stage_tile(slice, span, n, L, L, lane);
-            for (int p0 = 0; p0 < L; p0 += 32) {
-                const int p = p0 + lane;
-                const bool valid = p < L;
-                float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-                int o[4] = {0, 0, 0, 0};
-                int pois = 0;
-                accumulate_column(tile + p, L, valid ? n : 0, table, c, o,
-                                  pois);
-                finish_column(c, o, pois, valid, p, row, len_f, pre, k, fp,
-                              emin, out, s);
-            }
-        } else {
-            // 32-column strips of row chunks, the sums in registers
-            const int chunk_rows = min(slice_bytes / 32, kMaxTileRows);
-            for (int ca = 0; ca < L; ca += 32) {
-                const int cw = min(32, L - ca);
-                const bool valid = lane < cw;
-                float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-                int o[4] = {0, 0, 0, 0};
-                int pois = 0;
-                for (int ra = 0; ra < n; ra += chunk_rows) {
-                    const int rows = min(chunk_rows, n - ra);
-                    const uint8_t* tile = stage_tile(
-                        slice, span + (size_t)ra * L + ca, rows, cw, L, lane);
-                    accumulate_column(tile + lane, cw, valid ? rows : 0,
-                                      table, c, o, pois);
-                }
-                finish_column(c, o, pois, valid, ca + lane, row, len_f, pre,
-                              k, fp, emin, out, s);
-            }
-        }
+        auto finish = [=, &s](const float c[4], const int o[4], int pois,
+                              bool valid, int pos) {
+            finish_column(c, o, pois, valid, pos, row, len_f, pre, k, fp,
+                          emin, out, s);
+        };
+        consensus_read(wire + (size_t)r0 * L, starts[f + 1] - r0, L,
+                       slice_bytes, slice, table, lane, finish);
 #pragma unroll
         for (int j = 0; j < kStatsCols; ++j) {
 #pragma unroll
@@ -511,16 +501,19 @@ consensus_wire_filter_kernel(
     }
 }
 
-// K1-f's slice of shared memory per warp for rows of L bytes: 16 rows,
-// between 2 KB and 6 KB (a 5-row family at L = 152 fits whole; longer
-// reads go in strips), in 16-byte units.
-int filter_slice_bytes(int L) {
+// ---------------------------------------------------------------------------
+// Launch geometry, shared by both kernels.
+
+// A warp's slice of shared memory for rows of L bytes: 16 rows, between
+// 2 KB and 6 KB (a 5-row family at L = 152 fits whole; longer reads go in
+// strips), in 16-byte units.
+int slice_bytes_for(int L) {
     long long s = 16LL * L;
     s = s < kMinSlice ? kMinSlice : (s > kMaxSlice ? kMaxSlice : s);
     return (int)((s + 15) & ~15LL);
 }
 
-struct FilterGeometry {
+struct Geometry {
     int grid;
     int warps;
     int smem;
@@ -529,8 +522,11 @@ struct FilterGeometry {
     int sms;
 };
 
-// Occupancy per (device, dynamic shared bytes), computed at first use.
+// Occupancy per (kernel, device, dynamic shared bytes), computed at first
+// use: the two kernels use different registers, so one's entry does not
+// hold for the other.
 struct OccupancyEntry {
+    const void* kernel;
     int dev;
     int smem;
     int sms;
@@ -540,18 +536,20 @@ std::mutex g_occ_mutex;
 OccupancyEntry g_occ[64];
 int g_occ_n = 0;
 
-int filter_geometry(int L, int num_segments, FilterGeometry* g) {
+int launch_geometry(const void* kernel, int L, int num_segments,
+                    Geometry* g) {
     int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return (int)err;
-    g->warps = kFilterWarps;
-    g->slice = filter_slice_bytes(L);
-    g->smem = kFilterWarps * (g->slice + 16);
+    g->warps = kWarps;
+    g->slice = slice_bytes_for(L);
+    g->smem = kWarps * (g->slice + 16);
     int sms = 0, blocks = 0;
     {
         std::lock_guard<std::mutex> hold(g_occ_mutex);
         for (int i = 0; i < g_occ_n; ++i) {
-            if (g_occ[i].dev == dev && g_occ[i].smem == g->smem) {
+            if (g_occ[i].kernel == kernel && g_occ[i].dev == dev &&
+                g_occ[i].smem == g->smem) {
                 sms = g_occ[i].sms;
                 blocks = g_occ[i].blocks;
             }
@@ -561,27 +559,42 @@ int filter_geometry(int L, int num_segments, FilterGeometry* g) {
             // shared memory (the 6 KB byte table), which the slices pass
             // from L = 336 on: allow the widest slices whatever this L is.
             err = cudaFuncSetAttribute(
-                consensus_wire_filter_kernel,
-                cudaFuncAttributeMaxDynamicSharedMemorySize, kFilterMaxSmem);
+                kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                kMaxSmem);
             if (err != cudaSuccess) return (int)err;
             err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                &blocks, consensus_wire_filter_kernel, kFilterThreads,
-                g->smem);
+                &blocks, kernel, kThreads, g->smem);
             if (err != cudaSuccess) return (int)err;
             err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                          dev);
             if (err != cudaSuccess) return (int)err;
             if (blocks < 1) return (int)cudaErrorInvalidConfiguration;
-            if (g_occ_n < 64) g_occ[g_occ_n++] = {dev, g->smem, sms, blocks};
+            if (g_occ_n < 64) {
+                g_occ[g_occ_n++] = {kernel, dev, g->smem, sms, blocks};
+            }
         }
     }
     g->sms = sms;
     g->blocks_per_sm = blocks;
     const long long need =
-        ((long long)num_segments + kFilterWarps - 1) / kFilterWarps;
+        ((long long)num_segments + kWarps - 1) / kWarps;
     const long long full = (long long)sms * blocks;
     g->grid = (int)(need < full ? need : full);
     if (g->grid < 1) g->grid = 1;
+    return 0;
+}
+
+int geometry_out(const void* kernel, int L, int num_segments, int* out) {
+    if (L <= 0 || (L & 3) != 0) return (int)cudaErrorInvalidValue;
+    Geometry g;
+    const int rc = launch_geometry(kernel, L, num_segments, &g);
+    if (rc != 0) return rc;
+    out[0] = g.grid;
+    out[1] = g.warps;
+    out[2] = g.smem;
+    out[3] = g.blocks_per_sm;
+    out[4] = g.slice;
+    out[5] = g.sms;
     return 0;
 }
 
@@ -589,10 +602,11 @@ int filter_geometry(int L, int num_segments, FilterGeometry* g) {
 
 extern "C" {
 
-// Launch on `stream`: one block per segment f < num_segments, rows
-// [starts[f], starts[f+1]) of the (N, L) wire (L % 4 == 0). Outputs are
-// (num_segments, L) qs/depth/errors and (num_segments, L/4) wp. Returns
-// cudaGetLastError() after the launch (0 on success).
+// K1 launch on `stream`: a persistent grid of warps, one consensus read
+// (segment f < num_segments, rows [starts[f], starts[f+1]) of the (N, L)
+// wire, L % 4 == 0) per warp at a time. Outputs are (num_segments, L)
+// qs/depth/errors and (num_segments, L/4) wp. Returns cudaGetLastError()
+// after the launch (0 on success).
 int fgumi_consensus_wire_full(const uint8_t* wire, const int32_t* starts,
                               const float* dict, float pre, float ln_4_3,
                               float eps32, float phred_per_ln, int L,
@@ -601,18 +615,18 @@ int fgumi_consensus_wire_full(const uint8_t* wire, const int32_t* starts,
                               cudaStream_t stream) {
     if (num_segments <= 0) return 0;
     if (L <= 0 || (L & 3) != 0) return (int)cudaErrorInvalidValue;
-    const int groups = L >> 2;
-    int threads = ((groups + 31) / 32) * 32;
-    if (threads > 256) threads = 256;
+    Geometry g;
+    const int rc = launch_geometry((const void*)consensus_wire_full_kernel, L,
+                                   num_segments, &g);
+    if (rc != 0) return rc;
     Constants k{ln_4_3, eps32, phred_per_ln};
-    consensus_wire_full_kernel<<<num_segments, threads, 0, stream>>>(
-        wire, starts, dict, pre, k, L, qs, wp, depth, errors);
+    FullOut out{qs, wp, depth, errors};
+    consensus_wire_full_kernel<<<g.grid, kThreads, g.smem, stream>>>(
+        wire, starts, dict, pre, k, L, num_segments, g.slice, out);
     return (int)cudaGetLastError();
 }
 
-// K1-f launch on `stream`: a persistent grid of warps, one consensus read
-// (segment f < num_segments, rows [starts[f], starts[f+1]) of the (N, L)
-// wire, L % 4 == 0) per warp at a time, plus lens (num_segments,) consensus
+// K1-f launch on `stream`: as K1, plus lens (num_segments,) consensus
 // lengths and emin (32768,) int32. Outputs: stats (num_segments, 7) int32;
 // fb, fq, qs (num_segments, L) and wp (num_segments, L/4) uint8; raw u16
 // depth/errors (num_segments, L). Returns cudaGetLastError() after the
@@ -627,35 +641,32 @@ int fgumi_consensus_wire_filter(
         cudaStream_t stream) {
     if (num_segments <= 0) return 0;
     if (L <= 0 || (L & 3) != 0) return (int)cudaErrorInvalidValue;
-    FilterGeometry g;
-    const int rc = filter_geometry(L, num_segments, &g);
+    Geometry g;
+    const int rc = launch_geometry(
+        (const void*)consensus_wire_filter_kernel, L, num_segments, &g);
     if (rc != 0) return rc;
     Constants k{ln_4_3, eps32, phred_per_ln};
     FilterParams fp{min_reads_c, min_qual_c, f_min_reads, f_min_base_q,
                     per_base};
     FilterOut out{stats, fb, fq, depth, errors, qs, wp};
-    consensus_wire_filter_kernel<<<g.grid, kFilterThreads, g.smem, stream>>>(
+    consensus_wire_filter_kernel<<<g.grid, kThreads, g.smem, stream>>>(
         wire, starts, dict, pre, k, L, num_segments, lens, emin, fp, g.slice,
         out);
     return (int)cudaGetLastError();
 }
 
-// K1-f's launch geometry for rows of L bytes and num_segments reads on the
-// current device: out[0..5] = grid blocks, warps per block, dynamic shared
-// bytes per block, resident blocks per SM, shared bytes per warp's slice,
-// SMs. Returns 0 or a cudaError_t.
+// Each kernel's launch geometry for rows of L bytes and num_segments reads
+// on the current device: out[0..5] = grid blocks, warps per block, dynamic
+// shared bytes per block, resident blocks per SM, shared bytes per warp's
+// slice, SMs. Returns 0 or a cudaError_t.
+int fgumi_consensus_wire_full_geometry(int L, int num_segments, int* out) {
+    return geometry_out((const void*)consensus_wire_full_kernel, L,
+                        num_segments, out);
+}
+
 int fgumi_consensus_wire_filter_geometry(int L, int num_segments, int* out) {
-    if (L <= 0 || (L & 3) != 0) return (int)cudaErrorInvalidValue;
-    FilterGeometry g;
-    const int rc = filter_geometry(L, num_segments, &g);
-    if (rc != 0) return rc;
-    out[0] = g.grid;
-    out[1] = g.warps;
-    out[2] = g.smem;
-    out[3] = g.blocks_per_sm;
-    out[4] = g.slice;
-    out[5] = g.sms;
-    return 0;
+    return geometry_out((const void*)consensus_wire_filter_kernel, L,
+                        num_segments, out);
 }
 
 const char* fgumi_cuda_error_string(int code) {

@@ -3,7 +3,9 @@
 ``csrc/consensus_wire.cu`` (plain C interface) is compiled by ``nvcc`` for
 ``sm_90a`` into ``fgumi_tpu_torch/_build/`` at first use and loaded with
 ctypes. It holds two kernels that replace the JAX package's Pallas
-dispatches:
+dispatches, both one warp per consensus read on a persistent grid (their
+launch geometry: :func:`full_launch_geometry`,
+:func:`filter_launch_geometry`):
 
 - K1 ``consensus_wire_full`` — ``_full_jit``/``call_full`` (kind
   ``segwfp``); plain PyTorch version ``ops/wire.wire_full``;
@@ -116,9 +118,10 @@ def _lib():
     with _LOCK:
         if _LIB is None:
             lib = bind(ctypes.CDLL(build()))
-            fn = lib.fgumi_consensus_wire_filter_geometry
-            fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            for name in ("full", "filter"):
+                fn = getattr(lib, f"fgumi_consensus_wire_{name}_geometry")
+                fn.restype = ctypes.c_int
+                fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
             _LIB = lib
     return _LIB
 
@@ -261,19 +264,30 @@ def consensus_wire_filter(wire: torch.Tensor, starts: torch.Tensor,
     return stats, fb, fq, depth, errors, qs, wp
 
 
-def filter_launch_geometry(L: int, J: int, device=None) -> dict:
-    """K1-f's launch on ``device`` (default: the current CUDA device) for
-    J consensus reads of L columns: persistent grid size, warps per block,
-    dynamic shared bytes per block, resident blocks per SM (from the
-    occupancy query the launch makes), shared bytes per warp's slice and
-    the SM count."""
+def _launch_geometry(kernel: str, L: int, J: int, device) -> dict:
     lib = _lib()
     out = (ctypes.c_int * 6)()
     with torch.cuda.device(device if device is not None
                            else torch.cuda.current_device()):
-        rc = lib.fgumi_consensus_wire_filter_geometry(int(L), int(J), out)
+        rc = getattr(lib, f"fgumi_consensus_wire_{kernel}_geometry")(
+            int(L), int(J), out)
     if rc != 0:
-        _raise_launch(lib, "consensus_wire_filter_geometry", rc)
+        _raise_launch(lib, f"consensus_wire_{kernel}_geometry", rc)
     keys = ("grid", "warps_per_block", "shared_bytes", "blocks_per_sm",
             "slice_bytes", "sms")
     return dict(zip(keys, list(out)))
+
+
+def full_launch_geometry(L: int, J: int, device=None) -> dict:
+    """K1's launch on ``device`` (default: the current CUDA device) for J
+    consensus reads of L columns: persistent grid size, warps per block,
+    dynamic shared bytes per block, resident blocks per SM (from the
+    occupancy query the launch makes), shared bytes per warp's slice and
+    the SM count."""
+    return _launch_geometry("full", L, J, device)
+
+
+def filter_launch_geometry(L: int, J: int, device=None) -> dict:
+    """K1-f's launch geometry, as :func:`full_launch_geometry` gives K1's
+    (the same rule; the resident blocks per SM are K1-f's own)."""
+    return _launch_geometry("filter", L, J, device)

@@ -11,13 +11,16 @@ parent commit's: ``git show <commit>:fgumi_tpu_torch/csrc/consensus_wire.cu
 
 1. builds ``--base`` and this tree's source in parallel with the port's
    nvcc flags and prints each build's ptxas register and spill lines;
-2. makes the largest fused batches of ``fixed5_1M`` and ``longtail_200k``
-   as ``chip_smoke.py`` makes them (56,780 rows x 152 over 11,356 reads;
-   36,938 rows over 6,634 longtail reads of up to 50 rows);
+2. makes each kernel's main-path batches as ``chip_smoke.py`` makes them:
+   for K1, the subject, the largest fast batches of ``fixed5_1M`` and
+   ``longtail_200k`` (56,780 rows x 152 over 11,356 reads; 35,649 rows
+   over 6,634 longtail reads of up to 50 rows); for K1-f, the control, the
+   largest fused batches (the same shapes, made from other seeds: the
+   longtail one has 36,938 rows);
 3. calls each build through the port's own wrappers
-   (``cuda_kernel.consensus_wire_filter`` for K1-f, ``consensus_wire_full``
-   for K1, the control) and requires every output bit-identical between
-   the builds;
+   (``cuda_kernel.consensus_wire_full`` for K1,
+   ``consensus_wire_filter`` for K1-f) and requires every output
+   bit-identical between the builds;
 4. times each kernel of each build in turns (base, new, new, base, twice):
    torch.profiler device time per launch over 25 launches, and CUDA-event
    time per launch over 25 back-to-back launches;
@@ -44,16 +47,21 @@ import numpy as np
 
 import chip_smoke as S
 
-# batch shape (rows, L, reads), longtail sizes, seed (chip_smoke's)
-SHAPES = {"fixed5": ((56780, 152, 11356), False, len("k1f_fixed")),
-          "longtail": ((52974, 152, 6634), True, len("k1f_longtail"))}
-SYMBOLS = {"K1-f": "consensus_wire_filter_kernel",
-           "K1": "consensus_wire_full_kernel"}
+# kernel: (symbol, {batch: (shape (rows, L, reads), longtail sizes, seed)}),
+# each batch as chip_smoke's main-path phase makes it for that kernel
+KERNELS = {
+    "K1": ("consensus_wire_full_kernel", {
+        "fixed5": ((56780, 152, 11356), False, len("k1_fixed")),
+        "longtail": ((52974, 152, 6634), True, len("k1_longtail"))}),
+    "K1-f": ("consensus_wire_filter_kernel", {
+        "fixed5": ((56780, 152, 11356), False, len("k1f_fixed")),
+        "longtail": ((52974, 152, 6634), True, len("k1f_longtail"))}),
+}
 TURNS = 2
 
 
-def make_calls(shape, longtail: bool, seed: int, dev):
-    """The two wrappers' calls on one main-path batch, and the batch's
+def make_call(kernel: str, shape, longtail: bool, seed: int, dev):
+    """The kernel's wrapper call on one main-path batch, and the batch's
     (rows per read, reads, L)."""
     import torch
 
@@ -65,17 +73,22 @@ def make_calls(shape, longtail: bool, seed: int, dev):
     kern = ConsensusKernel(quality_tables(45, 40), dev)
     wire, dict64, starts_d, _ = S.wire_on_device(kern, codes, quals, starts,
                                                  dev, "kernel_ab")
-    fp = S.filter_stage(3, 25).dev_params
-    lens_d = torch.from_numpy(lens).to(dev)
-    emin = torch.from_numpy(fp.emin_tab.astype(np.int32)).to(dev)
-    calls = {
-        "K1-f": lambda: cuda_kernel.consensus_wire_filter(
-            wire, starts_d, dict64, kern._pre, S.MIN_READS_C, S.MIN_QUAL_C,
-            lens_d, fp.min_reads, emin, fp.min_base_q, fp.per_base),
-        "K1": lambda: cuda_kernel.consensus_wire_full(wire, starts_d, dict64,
-                                                      kern._pre)}
+    if kernel == "K1":
+        def call():
+            return cuda_kernel.consensus_wire_full(wire, starts_d, dict64,
+                                                   kern._pre)
+    else:
+        fp = S.filter_stage(3, 25).dev_params
+        lens_d = torch.from_numpy(lens).to(dev)
+        emin = torch.from_numpy(fp.emin_tab.astype(np.int32)).to(dev)
+
+        def call():
+            return cuda_kernel.consensus_wire_filter(
+                wire, starts_d, dict64, kern._pre, S.MIN_READS_C,
+                S.MIN_QUAL_C, lens_d, fp.min_reads, emin, fp.min_base_q,
+                fp.per_base)
     J = len(starts) - 1
-    return calls, codes.shape[0] / J, J, codes.shape[1]
+    return call, codes.shape[0] / J, J, codes.shape[1]
 
 
 def on(lib, call):
@@ -208,11 +221,11 @@ def main():
         libs = {k: cuda_kernel.bind(ctypes.CDLL(p)) for k, p in paths.items()}
         summary = {"card": smi, "times": {}}
         fixed = None
-        for key, (shape, longtail, seed) in SHAPES.items():
-            calls, rows_per_read, J, L = make_calls(shape, longtail, seed,
-                                                    dev)
-            fixed = fixed or (rows_per_read, J, L)
-            for kernel, call in calls.items():
+        for kernel, (symbol, batches) in KERNELS.items():
+            for key, (shape, longtail, seed) in batches.items():
+                call, rows_per_read, J, L = make_call(kernel, shape,
+                                                      longtail, seed, dev)
+                fixed = fixed or (rows_per_read, J, L)
                 runs = {k: on(lib, call) for k, lib in libs.items()}
                 a = [t.clone() for t in runs["base"]()]
                 b = [t.clone() for t in runs["new"]()]
@@ -225,8 +238,7 @@ def main():
                 times = {"base": [], "new": []}
                 for _ in range(TURNS):
                     for kind in ("base", "new", "new", "base"):
-                        ms, seen = S.device_ms(runs[kind],
-                                               kernel=SYMBOLS[kernel])
+                        ms, seen = S.device_ms(runs[kind], kernel=symbol)
                         times[kind].append({"device_ms": ms,
                                             "profiled": seen,
                                             "loop_ms": S.loop_ms(runs[kind])})
@@ -246,8 +258,8 @@ def main():
                 os.makedirs(args.sass_out, exist_ok=True)
                 save = os.path.join(args.sass_out, f"{kind}.sass")
             funcs = sass_functions(path, save)
-            for kernel, sym in SYMBOLS.items():
-                insns = funcs[next(k for k in funcs if sym in k)]
+            for kernel, (symbol, _) in KERNELS.items():
+                insns = funcs[next(k for k in funcs if symbol in k)]
                 rep = {"build": kind, "kernel": kernel,
                        "method": "cuobjdump -sass, static estimate",
                        **per_column_estimate(insns, rows_per_read, L)}

@@ -7,8 +7,11 @@ JAX installed:
 
     python -m pytest --noconftest tests/test_torch_cuda.py
 
-The last tests also drive ``python -m fgumi_tpu_torch simplex`` (the fast
-engine, with and without ``--device-filter``) on the card.
+Both kernels run one design (a warp per consensus read on a persistent
+grid, rows staged whole or in 32-column strips of row chunks), so each
+tiling edge is a case of one test for both. The last tests also drive
+``python -m fgumi_tpu_torch simplex`` (the fast engine, with and without
+``--device-filter``) on the card.
 
 Tolerances: depth and errors exact; winner and qual (K1), and the stats
 columns 0-5 and the masked columns within the read length (K1-f), exact
@@ -51,14 +54,31 @@ def test_kernel_matches_plain(cuda_dev, n_fam, fam, L):
     rng = np.random.default_rng(n_fam + fam + L)
     codes = rng.integers(0, 5, size=(n_fam * fam, L), dtype=np.uint8)
     quals = rng.integers(2, 41, size=(n_fam * fam, L), dtype=np.uint8)
-    starts = np.arange(n_fam + 1, dtype=np.int64) * fam
+    _hold_full_kernel(cuda_dev, codes, quals, np.full(n_fam, fam))
+
+
+def test_full_kernel_deep_family(cuda_dev):
+    """Three 600-row families at L 16 (the CPU parity case deep_600's
+    shape): more rows than a tile takes, so the strip path."""
+    codes, quals, _ = _random_reads((600, 600, 600), 16, seed=600)
+    _hold_full_kernel(cuda_dev, codes, quals, np.full(3, 600))
+
+
+def _hold_full_kernel(cuda_dev, codes, quals, counts):
+    """K1 against W.wire_full on one batch: depth/errors exact,
+    winner/qual exact where neither side is suspect, every plane exact
+    after the oracle patch."""
+    counts = np.asarray(counts, dtype=np.int64)
+    n_fam = len(counts)
+    starts = np.concatenate(([0], np.cumsum(counts)))
     kern = ConsensusKernel(quality_tables(45, 40), cuda_dev)
     wire, dict64 = W.build_wire(torch.from_numpy(codes),
                                 torch.from_numpy(quals), kern._delta94)
     wire, dict64 = wire.to(cuda_dev), dict64.to(cuda_dev)
     starts_d = torch.from_numpy(starts.astype(np.int32)).to(cuda_dev)
     seg_ids = torch.repeat_interleave(
-        torch.arange(n_fam, device=cuda_dev), fam)
+        torch.arange(n_fam, device=cuda_dev),
+        torch.from_numpy(counts).to(cuda_dev))
     launches = cuda_kernel.LAUNCHES
     got = [t.cpu().numpy() for t in cuda_kernel.consensus_wire_full(
         wire, starts_d, dict64, kern._pre)]
@@ -138,58 +158,74 @@ def _family_reads(counts, L, seed):
 # (the 300-row one in several chunks); from L = 336 on the byte table and
 # the slices of a block take more than 48 KB of shared memory
 RAGGED = (5, 300, 1, 50, 2, 5, 1, 50, 300, 2)
+KERNELS = ("full", "filter")
+GEOMETRY = {"full": cuda_kernel.full_launch_geometry,
+            "filter": cuda_kernel.filter_launch_geometry}
 
 
+def _hold(kernel, cuda_dev, codes, quals, counts, lens):
+    """K1 or K1-f (per-base masks and the quality mask on) against its
+    plain version on one batch."""
+    if kernel == "full":
+        _hold_full_kernel(cuda_dev, codes, quals, counts)
+    else:
+        _hold_filter_kernel(cuda_dev, codes, quals, counts, lens, 3, True,
+                            25)
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
 @pytest.mark.parametrize("L", [4, 36, 152, 304, 336, 380, 2048])
-def test_filter_kernel_ragged_reads(cuda_dev, L):
+def test_kernel_ragged_reads(cuda_dev, kernel, L):
     codes, quals, lens = _random_reads(RAGGED, L, seed=L)
-    _hold_filter_kernel(cuda_dev, codes, quals, np.asarray(RAGGED), lens, 3,
-                        True, 25)
+    _hold(kernel, cuda_dev, codes, quals, RAGGED, lens)
 
 
-def test_filter_kernel_ragged_q0(cuda_dev):
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_kernel_ragged_q0(cuda_dev, kernel):
     """Q0-class observations (a -inf dictionary entry) in ragged reads."""
     codes, quals, lens = _random_reads(RAGGED, 152, seed=11, q0=True)
-    _hold_filter_kernel(cuda_dev, codes, quals, np.asarray(RAGGED), lens, 3,
-                        True, 25)
+    _hold(kernel, cuda_dev, codes, quals, RAGGED, lens)
 
 
+@pytest.mark.parametrize("kernel", KERNELS)
 @pytest.mark.parametrize("J", [1, 3, 37])
-def test_filter_kernel_fewer_reads_than_warps(cuda_dev, J):
+def test_kernel_fewer_reads_than_warps(cuda_dev, kernel, J):
     """J = 1 and J below the persistent grid's warp count: the grid shrinks
     to the reads and idle warps write nothing."""
-    geo = cuda_kernel.filter_launch_geometry(152, J, cuda_dev)
+    geo = GEOMETRY[kernel](152, J, cuda_dev)
     assert geo["grid"] == -(-J // geo["warps_per_block"])
     counts = np.arange(J) % 7 + 1
     codes, quals, lens = _random_reads(counts, 152, seed=J)
-    _hold_filter_kernel(cuda_dev, codes, quals, counts, lens, 3, True, 25)
+    _hold(kernel, cuda_dev, codes, quals, counts, lens)
 
 
-def test_filter_kernel_many_reads(cuda_dev):
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_kernel_many_reads(cuda_dev, kernel):
     """40,000 reads: more than one pass of the persistent grid."""
     J = 40000
-    geo = cuda_kernel.filter_launch_geometry(152, J, cuda_dev)
+    geo = GEOMETRY[kernel](152, J, cuda_dev)
     assert geo["grid"] == geo["sms"] * geo["blocks_per_sm"]
     assert geo["grid"] * geo["warps_per_block"] < J
     counts = np.random.default_rng(4).integers(1, 9, size=J)
     codes, quals, lens = _family_reads(counts, 152, seed=4)
-    _hold_filter_kernel(cuda_dev, codes, quals, counts, lens, 3, True, 25)
+    _hold(kernel, cuda_dev, codes, quals, counts, lens)
 
 
-def test_filter_launch_geometry(cuda_dev):
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_launch_geometry(cuda_dev, kernel):
     """The launch's geometry: 8 warps a block, a slice of 2-6 KB a warp,
     resident blocks from the occupancy query, the dynamic shared memory
     above 48 KB at wide rows."""
+    geometry = GEOMETRY[kernel]
     for L, slice_bytes in ((4, 2048), (152, 2432), (336, 5376), (380, 6080),
                            (2048, 6144)):
-        geo = cuda_kernel.filter_launch_geometry(L, 10 ** 6, cuda_dev)
+        geo = geometry(L, 10 ** 6, cuda_dev)
         assert geo["warps_per_block"] == 8
         assert geo["slice_bytes"] == slice_bytes
         assert geo["shared_bytes"] == 8 * (slice_bytes + 16)
         assert geo["blocks_per_sm"] >= 1
         assert geo["grid"] == geo["sms"] * geo["blocks_per_sm"]
-    assert cuda_kernel.filter_launch_geometry(2048, 1, cuda_dev)[
-        "shared_bytes"] > 48 * 1024
+    assert geometry(2048, 1, cuda_dev)["shared_bytes"] > 48 * 1024
 
 
 def _hold_filter_kernel(cuda_dev, codes, quals, counts, lens, f_min_reads,

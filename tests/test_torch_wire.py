@@ -180,10 +180,41 @@ def _assert_resolved(a, b, label):
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_wire_full_matches_xla_and_pallas(case):
-    codes, quals, counts = CASES[case]()
+    _hold_against_jax(*CASES[case]())
+
+
+# ragged reads of 1-80 rows (the patterns of test_torch_wire_filter.py) at
+# L 36 (several 32-column strips, the last 4 wide) and 152 (the main
+# path's), with Q0-class observations on one pattern
+RAGGED = [(1, 2, 5), (80, 1, 3), (2, 50, 7, 1), (33, 4, 64, 2),
+          (1, 1, 1, 79), (5, 17, 41, 80, 3)]
+RAGGED_CASES = [(counts, L, counts == RAGGED[3])
+                for counts in RAGGED for L in (36, 152)]
+
+
+@pytest.mark.parametrize(
+    "counts,L,q0", RAGGED_CASES,
+    ids=[f"rows{'-'.join(map(str, c))}_L{L}" + ("_q0" if q0 else "")
+         for c, L, q0 in RAGGED_CASES])
+def test_wire_full_ragged_matches_xla_and_pallas(counts, L, q0):
+    counts = np.asarray(counts, dtype=np.int64)
+    rng = np.random.default_rng(int(counts.sum()) * 31 + L)
+    N = int(counts.sum())
+    codes = rng.integers(0, 5, size=(N, L), dtype=np.uint8)
+    quals = rng.integers(15, 41, size=(N, L), dtype=np.uint8)
+    if q0:
+        quals[::5, ::7] = 0
+    _hold_against_jax(codes, quals, counts)
+
+
+def _hold_against_jax(codes, quals, counts):
+    """The port's K1 route (its wrapper on CPU tensors: the plain version)
+    against XLA and Pallas-interpret on one batch."""
     codes, quals, starts = pad_segments(codes, quals, counts)
     J = len(counts)
+    launches = cuda_kernel.LAUNCHES
     kern, wire, dict64, port_out = _port_full(codes, quals, starts)
+    assert cuda_kernel.LAUNCHES == launches  # the plain route
     port_raw = _dev_planes(*port_out, J)
     seg_ids = np.repeat(np.arange(J, dtype=np.int32), counts)
 
@@ -205,18 +236,17 @@ def test_wire_full_matches_xla_and_pallas(case):
     obs_q0 = (quals == 0) & (codes != 4)
     poisoned = np.add.reduceat(obs_q0.astype(np.int32), starts[:-1],
                                axis=0) > 0
-    _assert_raw(port_raw, _dev_planes(*xla, J), starts, f"{case} vs xla",
+    _assert_raw(port_raw, _dev_planes(*xla, J), starts, "vs xla",
                 poisoned if poisoned.any() else None)
-    _assert_raw(port_raw, _dev_planes(*pallas, J), starts,
-                f"{case} vs pallas")
+    _assert_raw(port_raw, _dev_planes(*pallas, J), starts, "vs pallas")
 
     port_res = kern._complete_wire_columns(
         port_out[0], port_out[1], port_out[2].view(np.uint16),
         port_out[3].view(np.uint16), codes, quals, starts)
     _assert_resolved(port_res, _jax_resolve(xla, codes, quals, starts),
-                     f"{case} resolved vs xla")
+                     "resolved vs xla")
     _assert_resolved(port_res, _jax_resolve(pallas, codes, quals, starts),
-                     f"{case} resolved vs pallas")
+                     "resolved vs pallas")
 
 
 def test_packed2_matches_xla():
