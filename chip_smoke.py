@@ -129,7 +129,10 @@ Phases (any failed check exits nonzero; nothing is caught and passed over):
    batch; the simplex stage's largest batch of each ``cuda`` pipeline run:
    K1 on fused and ``--no-fuse`` ``pipeline_400k`` and on
    ``pipeline_k4_50k``, K1-f on ``pipeline_400k --device-filter``; K1-r at
-   ``duplex_240k``'s largest stage-1 batch and K5 over its resident arrays
+   ``duplex_240k``'s largest stage-1 batch, and at uniform random bases and
+   quals 2-40 of that shape (almost every column with a disagreement), and
+   K5
+   over its resident arrays
    at that run's largest device combine (rows), held against the numpy
    combine; K1 at ``codec_320k``'s largest stage-1 batch and K6 at its
    largest combine (positions), held against ``combine_arrays``; K4 at the
@@ -144,15 +147,19 @@ Phases (any failed check exits nonzero; nothing is caught and passed over):
    yardstick ``torch.cdist(a.float(), b.float(), p=0)``; K5 and K6 are also
    held against their plain versions on the card and K6 against
    ``codec_combine_device`` (its one upload and one fetch), and beside
-   their times stands the numpy combine's host time (``host_ms``);
+   their times stands the numpy combine's host time (``host_ms``); the
+   packed2 route (``ops/wire.packed2_full``, plain PyTorch on the card) at
+   ``many_quals_20k``'s largest batch, held against its CPU run and timed
+   (every kernel of a call) beside its byte bound (the ``packed2`` line);
 5. the ``kernels`` JSON line: one entry a kernel and path, its ``path`` the
    run whose shape it was checked and timed at and its ``launches`` that
    run's count, taken between a reset and a read (K1 ``fixed5_1M_fast``,
    ``pipeline_400k_fused`` and ``duplex_240k``, K1-f ``fixed5_1M_fused`` and
    ``pipeline_400k_device_filter``, K4 ``amplicon_group_adjacency_fast`` and
    ``pipeline_k4_50k_fused``, K1-r and K5 ``duplex_240k``, K1 and K6
-   ``codec_320k``; each entry with its registers and launch geometry), the
-   nvidia-smi line and, last, the device line.
+   ``codec_320k``; each entry with its registers and launch geometry; K1-r's
+   also with ``uniform_ms``, its time at the uniform batch), the nvidia-smi
+   line and, last, the device line.
 
 Exits 2 without a result when CUDA is unavailable or the port is missing.
 """
@@ -380,6 +387,31 @@ def main_path_batch(shape, longtail: bool, seed: int):
     return codes, quals, starts, lens
 
 
+def uniform_batch(shape, seed: int):
+    """J reads of N // J rows each at L columns (``shape`` (N, L, J)),
+    uniform random bases and quals 2-40: almost every column has a
+    disagreement (unequal losing lanes)."""
+    N, L, J = shape
+    rng = np.random.default_rng(seed)
+    fam = max(N // J, 1)
+    codes = rng.integers(0, 4, size=(J * fam, L), dtype=np.uint8)
+    quals = rng.integers(2, 41, size=(J * fam, L), dtype=np.uint8)
+    return codes, quals, (np.arange(J + 1) * fam).astype(np.int64)
+
+
+def wire_kernel_bytes(N: int, L: int, J: int, col_bytes: int) -> int:
+    """A wire kernel's bytes, each input read once and each output written
+    once: the wire, starts and dictionary, ``col_bytes`` a column (K1: qs
+    1 B, depth and errors 2 B each; K1-r also tb, tq 1 B and obs 16 B) and
+    the wp plane's quarter byte."""
+    return N * L + (J + 1) * 4 + 64 * 4 + J * L * col_bytes + J * (L // 4)
+
+
+# K1's and K1-r's bytes a column, the wp plane's aside
+FULL_COL_BYTES = 1 + 2 + 2
+RESIDENT_COL_BYTES = FULL_COL_BYTES + 1 + 1 + 16
+
+
 # ----------------------------------------------------------------- timing
 
 def _call_ms(fn, warmup: int = 3, reps: int = 25) -> float:
@@ -564,9 +596,7 @@ def check_wire_kernel(name, codes, quals, starts, dev, timed: bool):
            "geometry": cuda_kernel.full_launch_geometry(L, J, dev),
            "registers": ptxas_registers("consensus_wire_full_kernel")}
     if timed:
-        # each input read once, each output written once
-        res["bytes"] = (N * L + (J + 1) * 4 + 64 * 4
-                        + J * L * (1 + 2 + 2) + J * (L // 4))
+        res["bytes"] = wire_kernel_bytes(N, L, J, FULL_COL_BYTES)
         # f32 work: 4 lane adds per valid observation, ~48 ops per column
         # (winner, posterior, two-trials, Phred, guard band)
         res["ops"] = 4 * int((codes != 4).sum()) + 48 * J * L
@@ -647,9 +677,7 @@ def check_resident_kernel(name, codes, quals, starts, dev, timed: bool,
            "geometry": cuda_kernel.resident_launch_geometry(L, J, dev),
            "registers": ptxas_registers("consensus_wire_resident_kernel")}
     if timed:
-        # K1's bytes plus tb, tq (1 B) and obs (16 B) a column
-        res["bytes"] = (N * L + (J + 1) * 4 + 64 * 4
-                        + J * L * (1 + 2 + 2 + 1 + 1 + 16) + J * (L // 4))
+        res["bytes"] = wire_kernel_bytes(N, L, J, RESIDENT_COL_BYTES)
         res["ops"] = 4 * int((codes != 4).sum()) + 52 * J * L
         _time(res, run_kernel, run_plain, cuda_kernel, "RESIDENT_LAUNCHES",
               "consensus_wire_resident_kernel")
@@ -1193,7 +1221,9 @@ def kernel_phase_test_shapes(dev):
     # chunks; from 336 on the byte table and the slices of a block pass 48
     # KB of shared memory), Q0-class observations in ragged reads, fewer
     # reads than the persistent grid has warps, and more than one pass of
-    # it; K1 also three 600-row families at L 16 (the strip path's chunks)
+    # it; K1 also three 600-row families at L 16 (the strip path's chunks);
+    # widths 36, 152, 304, 336 and 380 end on a partial 128-column chunk of
+    # K1-r's staged planes
     ragged = (5, 300, 1, 50, 2, 5, 1, 50, 300, 2)
     cases = [(f"ragged_x{L}", ragged, L, False, False)
              for L in (4, 36, 152, 304, 336, 380, 2048)]
@@ -1220,6 +1250,63 @@ def kernel_phase_test_shapes(dev):
             max(L - 7, 0), L + 1, size=len(sizes)).astype(np.int32)
         check_filter_kernel(f"k1f_{name}", codes, quals, starts, lens, dev,
                             timed=False)
+
+
+def check_packed2_route(name, shape, launches: int, dev):
+    """The packed2 route (``ops/wire.packed2_full``: plain PyTorch on the
+    card, the batches of more than 63 distinct quals) at one batch shape
+    (N, L, J) of main-path families with quals 2-93: held against the same
+    function on the CPU (depth and errors exact, winner and qual exact
+    where neither side is suspect) and timed: the device time of every
+    kernel one call launches, beside its byte bound. ``launches`` is the
+    route's count in the run whose batch this is."""
+    import torch
+
+    from fgumi_tpu_torch.ops import wire as W
+    from fgumi_tpu_torch.ops.kernel import ConsensusKernel
+    from fgumi_tpu_torch.ops.tables import quality_tables
+
+    N, L, J = shape
+    codes, quals, starts, _ = main_path_batch(shape, False, seed=N)
+    quals = np.where(codes == 4, 0, np.random.default_rng(N).integers(
+        2, 94, size=quals.shape)).astype(np.uint8)
+    codes_t, quals_t = torch.from_numpy(codes), torch.from_numpy(quals)
+    tables = quality_tables(45, 40)
+    check(W.build_wire(codes_t, quals_t, ConsensusKernel(
+        tables, "cpu")._delta94) is None, f"{name}: the batch fits the wire")
+    cp, qsent = W.pack_codes2(codes_t, quals_t)
+    seg = torch.repeat_interleave(torch.arange(J),
+                                  torch.from_numpy(np.diff(starts)))
+    sides = {}
+    for d in ("cpu", dev):
+        kern = ConsensusKernel(tables, d)
+        args = (cp.to(d), qsent.to(d), seg.to(d), *kern._device_tables(),
+                kern._pre, J, J)
+        sides[str(d)] = (lambda args=args: W.packed2_full(*args))
+    launches0 = W.PACKED2_LAUNCHES
+    got = [t.cpu().numpy() for t in sides[str(dev)]()]
+    ref = [t.numpy() for t in sides["cpu"]()]
+    (wk, qk, sk), (wr, qr, sr) = (W.unpack_result_split(o[0], o[1], J)
+                                  for o in (got, ref))
+    for k, plane in ((2, "depth"), (3, "errors")):
+        check(np.array_equal(got[k], ref[k]), f"{name}: {plane} differs")
+    clean = ~sk & ~sr
+    check(np.array_equal(wk[clean], wr[clean]) and
+          np.array_equal(qk[clean], qr[clean]),
+          f"{name}: winner or qual differs on non-suspect positions")
+    run = sides[str(dev)]
+    ms, _ = device_ms(run)
+    res = {"route": "plain PyTorch on the card", "name": name, "rows": N,
+           "L": L, "reads": J, "launches": launches, "ms": ms,
+           "loop_ms": loop_ms(run),
+           # codes (2 bits) and quals (1 B) a position, int64 segment ids,
+           # the two (94,) tables; qs, depth, errors and wp out
+           "bytes": (N * L // 4 + N * L + 8 * N + 2 * 94 * 4
+                     + J * L * FULL_COL_BYTES + J * (L // 4))}
+    W.PACKED2_LAUNCHES = launches0
+    res["bound_ms"] = res["bytes"] / HBM_BYTES_PER_S * 1e3
+    print("packed2 " + json.dumps(res), flush=True)
+    return res
 
 
 def kernel_phase_main_path(dev, shapes, k4_shapes, pipeline_shapes):
@@ -1251,6 +1338,13 @@ def kernel_phase_main_path(dev, shapes, k4_shapes, pipeline_shapes):
             out[key] = check_resident_kernel(name, codes, quals, starts, dev,
                                              timed=True)
             out[key]["codes"] = codes
+            # uniform bases and quals at the same shape: almost every
+            # column with a disagreement
+            codes, quals, starts = uniform_batch(shape, seed=len(key))
+            out[f"{key}_uniform"] = check_resident_kernel(
+                f"main_{key}_uniform_{len(starts) - 1}seg_"
+                f"{codes.shape[0]}rows_x{codes.shape[1]}", codes, quals,
+                starts, dev, timed=True)
         else:
             out[key] = check_filter_kernel(name, codes, quals, starts, lens,
                                            dev, timed=True)
@@ -2047,10 +2141,11 @@ def ptxas_registers(kernel: str):
 
 
 def kernel_entry(name, res, launches, replaces, path,
-                 source=KERNEL_SOURCE):
+                 source=KERNEL_SOURCE, **extra):
     """One entry of the ``kernels`` line: ``launches`` is the count of the
-    run ``path``, whose shape ``res`` was checked and timed at."""
-    return {"name": name, "route": "cuda", "source": source,
+    run ``path``, whose shape ``res`` was checked and timed at; ``extra``
+    keys are added as they are."""
+    return {**extra, "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "path": path, "launches": launches,
             "max_abs_err": res["max_abs_err"], "ms": res["ms"],
             "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
@@ -2139,6 +2234,9 @@ def main():
             "resident", duplexes["duplex_240k"]["cuda"]["largest_batch"]),
         "k1_codec": (
             "full", codecs["codec_320k"]["cuda"]["largest_batch"])})
+    mq = e2e["many_quals_20k"]["fast"]
+    check_packed2_route("main_packed2_many_quals_20k", mq["largest_batch"],
+                        mq["launches"]["packed2_full"], dev)
     d240, c320 = duplexes["duplex_240k"]["cuda"], codecs["codec_320k"]["cuda"]
     k5 = check_duplex_combine(
         f"main_k5_duplex_{d240['combine_device_largest']}rows",
@@ -2176,7 +2274,8 @@ def main():
                      HAMMING_SOURCE),
         kernel_entry("consensus_wire_resident", main_k["k1r_duplex"],
                      d240["launches"]["consensus_wire_resident"],
-                     REPLACES_RESIDENT, "duplex_240k"),
+                     REPLACES_RESIDENT, "duplex_240k",
+                     uniform_ms=main_k["k1r_duplex_uniform"]["ms"]),
         kernel_entry("duplex_combine", k5, d240["launches"]["duplex_combine"],
                      REPLACES_DUPLEX_COMBINE, "duplex_240k", COMBINE_SOURCE),
         kernel_entry("consensus_wire_full", main_k["k1_codec"],

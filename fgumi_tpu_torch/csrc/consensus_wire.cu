@@ -1,7 +1,8 @@
 // Wire consensus kernels for Hopper (sm_90a): K1, the full-column kernel,
 // K1-r, K1 plus the duplex combine's resident arrays, and K1-f, the fused
 // consensus->filter kernel. All three run one design and share its read
-// loop; they differ only in what a finished column stores.
+// loop; they differ only in what a finished column stores (K1-r stages
+// its narrow planes in shared memory first).
 //
 // K1 replaces the Pallas TPU kernel fgumi_tpu/ops/pallas_kernel.py
 // `_consensus_kernel` (with its `_pack_split` packing and the
@@ -152,8 +153,8 @@ constexpr int kMinBlocks = 4;
 constexpr int kMaxTileRows = 255;  // rows the packed 8-bit counts take
 constexpr int kMinSlice = 2048;    // shared bytes of a warp's slice
 constexpr int kMaxSlice = 6144;
-// the most dynamic shared memory a block takes: kWarps of the widest
-// slices, each with its 16 spare bytes
+// the most dynamic shared memory a block's slices take: kWarps of the
+// widest, each with its 16 spare bytes (K1-r adds its chunk staging)
 constexpr int kMaxSmem = kWarps * (kMaxSlice + 16);
 constexpr unsigned kFullMask = 0xFFFFFFFFu;
 
@@ -378,12 +379,43 @@ consensus_wire_full_kernel(
 //
 // Bound: memory. K1's bytes plus 18 B a column (tb 1 B, tq 1 B, obs 16 B):
 // 23.25 B written a column against ~3 B of wire read at the duplex batch's
-// 3-row families, so the stores dominate.
+// 3-row families, so the stores dominate. At 71,172 rows x 128 over 23,724
+// reads that is 79.8 MB, 0.0238 ms at 3.35 TB/s.
+//
+// What held the first design back: every lane wrote all seven planes at
+// every 32-column step, six of them a byte or two a lane, and it took
+// 0.0622 ms at that batch on an H100 80GB HBM3 (700 W), 38% of its byte
+// bound and the same time a column as K1, which writes a quarter of the
+// bytes. Halving the epilogue's instructions did not move it: a split
+// epilogue (a short common path for the columns whose three losing lanes
+// hold equal sums and whose combine takes its quick branch, the rest
+// compacted through a per-warp queue in shared memory) took the parent's
+// time with the per-column stores, and with the staging below it was
+// within 6% of this design either way by batch (PERF.md, kernel_ab.py), too
+// little to pay for a queue and a routing rule. The stores bound it.
 //
 // Design: K1's (one warp a read on the persistent grid, the shared read
-// loop), with the thresholds in the column's finish. The counts o[4] are
-// the column's own registers there; a lane stores them as one int4, so a
-// warp step writes 512 contiguous bytes of obs.
+// loop, K1's column epilogue in every lane), with the thresholds in the
+// column's finish. The counts o[4] are the column's own registers there; a
+// lane stores them as one int4, so a warp step writes 512 contiguous bytes
+// of obs. The narrow planes (qs, tb, tq, depth, errors, wp) of the 128
+// columns in hand are staged in the warp's shared memory after the block's
+// slices (928 B a warp) and written once the chunk is whole, 4 bytes a
+// lane of each byte plane and 8 of each u16 plane: one store instruction a
+// plane every four steps. 64 registers, no spills, as K1.
+
+// A warp's staging of the narrow planes of the kChunk columns in hand,
+// written out with one wide store a plane.
+constexpr int kChunk = 128;
+
+struct ChunkStage {
+    uint16_t depth[kChunk];
+    uint16_t errors[kChunk];
+    uint8_t qs[kChunk];
+    uint8_t tb[kChunk];
+    uint8_t tq[kChunk];
+    uint8_t wp[kChunk / 4];
+};
 
 struct ResidentOut {
     uint8_t* qs;
@@ -394,6 +426,32 @@ struct ResidentOut {
     uint8_t* tq;
     int4* obs;
 };
+
+// The staged chunk of w columns (w % 4 == 0) from column c0 of the read
+// whose first column is `row`, into the planes: 4 bytes a lane of each byte
+// plane and 8 of each u16 plane (row + c0 is a multiple of 4, as L is),
+// and the wp bytes. All 32 lanes call it.
+__device__ __forceinline__ void write_chunk(
+        const ChunkStage& s, const ResidentOut& out, size_t row, int c0,
+        int w, int lane) {
+    __syncwarp();  // every lane's columns are staged
+    const size_t col = row + c0 + 4 * lane;
+    if (4 * lane < w) {
+        const int i = 4 * lane;
+        *reinterpret_cast<uint32_t*>(out.qs + col) =
+            *reinterpret_cast<const uint32_t*>(s.qs + i);
+        *reinterpret_cast<uint32_t*>(out.tb + col) =
+            *reinterpret_cast<const uint32_t*>(s.tb + i);
+        *reinterpret_cast<uint32_t*>(out.tq + col) =
+            *reinterpret_cast<const uint32_t*>(s.tq + i);
+        *reinterpret_cast<uint2*>(out.depth + col) =
+            *reinterpret_cast<const uint2*>(s.depth + i);
+        *reinterpret_cast<uint2*>(out.errors + col) =
+            *reinterpret_cast<const uint2*>(s.errors + i);
+        out.wp[col >> 2] = s.wp[lane];
+    }
+    __syncwarp();  // read before any lane stages the next chunk
+}
 
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 consensus_wire_resident_kernel(
@@ -409,31 +467,38 @@ consensus_wire_resident_kernel(
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
     uint8_t* slice = stage_mem + warp * (slice_bytes + 16);
+    ChunkStage& s = reinterpret_cast<ChunkStage*>(
+        stage_mem + kWarps * (slice_bytes + 16))[warp];
     const int stride = gridDim.x * kWarps;
     for (int f = blockIdx.x * kWarps + warp; f < num_segments;
          f += stride) {
         const int r0 = starts[f];
         const size_t row = (size_t)f * L;
-        auto finish = [=](const float c[4], const int o[4], int pois,
-                          bool valid, int pos) {
+        auto finish = [=, &s](const float c[4], const int o[4], int pois,
+                              bool valid, int pos) {
             int win, qual, depth, errors;
             bool suspect;
             column_epilogue(c, o, pois, pre, k, &win, &qual, &depth, &errors,
                             &suspect);
             const uint32_t wbits = wp_byte(win, valid, pos);
+            const int p0 = pos - lane;  // the step's first column
+            const int c0 = p0 & -kChunk;
             if (valid) {
-                const size_t col = row + pos;
+                const int i = pos - c0;
                 const bool low_depth = depth < min_reads;
                 const bool low_qual = qual < min_qual;
-                out.qs[col] = (uint8_t)(qual | (suspect ? 0x80 : 0));
-                out.depth[col] = (uint16_t)depth;
-                out.errors[col] = (uint16_t)errors;
-                out.tb[col] = (uint8_t)((low_depth || low_qual) ? kNCode
-                                                                : win);
-                out.tq[col] = (uint8_t)(low_depth ? 0
-                                        : (low_qual ? kMinPhred : qual));
-                out.obs[col] = make_int4(o[0], o[1], o[2], o[3]);
-                if ((pos & 3) == 0) out.wp[col >> 2] = (uint8_t)wbits;
+                s.qs[i] = (uint8_t)(qual | (suspect ? 0x80 : 0));
+                s.depth[i] = (uint16_t)depth;
+                s.errors[i] = (uint16_t)errors;
+                s.tb[i] = (uint8_t)((low_depth || low_qual) ? kNCode : win);
+                s.tq[i] = (uint8_t)(low_depth ? 0
+                                    : (low_qual ? kMinPhred : qual));
+                if ((pos & 3) == 0) s.wp[i >> 2] = (uint8_t)wbits;
+                out.obs[row + pos] = make_int4(o[0], o[1], o[2], o[3]);
+            }
+            // the chunk is whole at its fourth step or the read's last
+            if (p0 + 32 >= L || ((p0 + 32) & (kChunk - 1)) == 0) {
+                write_chunk(s, out, row, c0, min(kChunk, L - c0), lane);
             }
         };
         consensus_read(wire + (size_t)r0 * L, starts[f + 1] - r0, L,
@@ -613,14 +678,16 @@ std::mutex g_occ_mutex;
 OccupancyEntry g_occ[64];
 int g_occ_n = 0;
 
+// `warp_extra`: shared bytes a warp takes after the block's slices (K1-r's
+// chunk staging; 0 for K1 and K1-f).
 int launch_geometry(const void* kernel, int L, int num_segments,
-                    Geometry* g) {
+                    int warp_extra, Geometry* g) {
     int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return (int)err;
     g->warps = kWarps;
     g->slice = slice_bytes_for(L);
-    g->smem = kWarps * (g->slice + 16);
+    g->smem = kWarps * (g->slice + 16 + warp_extra);
     int sms = 0, blocks = 0;
     {
         std::lock_guard<std::mutex> hold(g_occ_mutex);
@@ -637,7 +704,7 @@ int launch_geometry(const void* kernel, int L, int num_segments,
             // from L = 336 on: allow the widest slices whatever this L is.
             err = cudaFuncSetAttribute(
                 kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                kMaxSmem);
+                kMaxSmem + kWarps * warp_extra);
             if (err != cudaSuccess) return (int)err;
             err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
                 &blocks, kernel, kThreads, g->smem);
@@ -661,10 +728,11 @@ int launch_geometry(const void* kernel, int L, int num_segments,
     return 0;
 }
 
-int geometry_out(const void* kernel, int L, int num_segments, int* out) {
+int geometry_out(const void* kernel, int L, int num_segments,
+                 int warp_extra, int* out) {
     if (L <= 0 || (L & 3) != 0) return (int)cudaErrorInvalidValue;
     Geometry g;
-    const int rc = launch_geometry(kernel, L, num_segments, &g);
+    const int rc = launch_geometry(kernel, L, num_segments, warp_extra, &g);
     if (rc != 0) return rc;
     out[0] = g.grid;
     out[1] = g.warps;
@@ -694,7 +762,7 @@ int fgumi_consensus_wire_full(const uint8_t* wire, const int32_t* starts,
     if (L <= 0 || (L & 3) != 0) return (int)cudaErrorInvalidValue;
     Geometry g;
     const int rc = launch_geometry((const void*)consensus_wire_full_kernel, L,
-                                   num_segments, &g);
+                                   num_segments, 0, &g);
     if (rc != 0) return rc;
     Constants k{ln_4_3, eps32, phred_per_ln};
     FullOut out{qs, wp, depth, errors};
@@ -705,8 +773,9 @@ int fgumi_consensus_wire_full(const uint8_t* wire, const int32_t* starts,
 
 // K1-r launch on `stream`: as K1, plus the consensus thresholds min_reads
 // and min_qual. Extra outputs: tb, tq (num_segments, L) uint8 and obs
-// (num_segments, L, 4) int32 (16-byte aligned). Returns cudaGetLastError()
-// after the launch (0 on success).
+// (num_segments, L, 4) int32 (16-byte aligned; qs, tb and tq 4-byte,
+// depth and errors 8-byte aligned). Returns cudaGetLastError() after the
+// launch (0 on success).
 int fgumi_consensus_wire_resident(
         const uint8_t* wire, const int32_t* starts, const float* dict,
         float pre, float ln_4_3, float eps32, float phred_per_ln, int L,
@@ -715,10 +784,17 @@ int fgumi_consensus_wire_resident(
         uint8_t* tq, int32_t* obs, cudaStream_t stream) {
     if (num_segments <= 0) return 0;
     if (L <= 0 || (L & 3) != 0) return (int)cudaErrorInvalidValue;
-    if (((uintptr_t)obs & 15u) != 0) return (int)cudaErrorMisalignedAddress;
+    // obs takes int4 stores, the chunk's byte planes 4-byte and its u16
+    // planes 8-byte ones
+    if (((uintptr_t)obs & 15u) != 0 ||
+        (((uintptr_t)qs | (uintptr_t)tb | (uintptr_t)tq) & 3u) != 0 ||
+        (((uintptr_t)depth | (uintptr_t)errors) & 7u) != 0) {
+        return (int)cudaErrorMisalignedAddress;
+    }
     Geometry g;
     const int rc = launch_geometry(
-        (const void*)consensus_wire_resident_kernel, L, num_segments, &g);
+        (const void*)consensus_wire_resident_kernel, L, num_segments,
+        (int)sizeof(ChunkStage), &g);
     if (rc != 0) return rc;
     Constants k{ln_4_3, eps32, phred_per_ln};
     ResidentOut out{qs, wp, depth, errors, tb, tq,
@@ -746,7 +822,7 @@ int fgumi_consensus_wire_filter(
     if (L <= 0 || (L & 3) != 0) return (int)cudaErrorInvalidValue;
     Geometry g;
     const int rc = launch_geometry(
-        (const void*)consensus_wire_filter_kernel, L, num_segments, &g);
+        (const void*)consensus_wire_filter_kernel, L, num_segments, 0, &g);
     if (rc != 0) return rc;
     Constants k{ln_4_3, eps32, phred_per_ln};
     FilterParams fp{min_reads_c, min_qual_c, f_min_reads, f_min_base_q,
@@ -760,22 +836,22 @@ int fgumi_consensus_wire_filter(
 
 // Each kernel's launch geometry for rows of L bytes and num_segments reads
 // on the current device: out[0..5] = grid blocks, warps per block, dynamic
-// shared bytes per block, resident blocks per SM, shared bytes per warp's
-// slice, SMs. Returns 0 or a cudaError_t.
+// shared bytes per block (K1-r's with its warps' chunk staging), resident blocks per SM, shared bytes per warp's slice, SMs.
+// Returns 0 or a cudaError_t.
 int fgumi_consensus_wire_full_geometry(int L, int num_segments, int* out) {
     return geometry_out((const void*)consensus_wire_full_kernel, L,
-                        num_segments, out);
+                        num_segments, 0, out);
 }
 
 int fgumi_consensus_wire_filter_geometry(int L, int num_segments, int* out) {
     return geometry_out((const void*)consensus_wire_filter_kernel, L,
-                        num_segments, out);
+                        num_segments, 0, out);
 }
 
 int fgumi_consensus_wire_resident_geometry(int L, int num_segments,
                                            int* out) {
     return geometry_out((const void*)consensus_wire_resident_kernel, L,
-                        num_segments, out);
+                        num_segments, (int)sizeof(ChunkStage), out);
 }
 
 const char* fgumi_cuda_error_string(int code) {

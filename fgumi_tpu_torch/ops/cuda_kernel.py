@@ -400,5 +400,10 @@ def filter_launch_geometry(L: int, J: int, device=None) -> dict:
 
 
 def resident_launch_geometry(L: int, J: int, device=None) -> dict:
-    """K1-r's launch geometry, as :func:`full_launch_geometry` gives K1's."""
-    return _launch_geometry("resident", L, J, device)
+    """K1-r's launch geometry, as :func:`full_launch_geometry` gives K1's;
+    its shared bytes also hold each warp's staging of a 128-column chunk's
+    narrow planes, ``scratch_bytes`` a block."""
+    geo = _launch_geometry("resident", L, J, device)
+    geo["scratch_bytes"] = geo["shared_bytes"] - geo["warps_per_block"] * (
+        geo["slice_bytes"] + 16)
+    return geo

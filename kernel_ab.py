@@ -22,17 +22,23 @@ For ``consensus_wire.cu`` (K1, K1-f and K1-r):
    largest fused batches (the same shapes, made from other seeds: the
    longtail one has 36,938 rows); for K1-r, ``duplex_240k``'s largest
    stage-1 batch (71,172 rows x 128 over 23,724 three-row strand
-   families), where both builds have it (a source from before K1-r is
-   A/B'd on K1 and K1-f alone);
+   families), ``k1r_uniform`` (the same shape, uniform random bases and
+   quals 2-40: almost every column with a disagreement) and ``k1r_two_row``
+   (71,172 rows over 35,586 two-row families of the main path's data: most
+   columns' combine takes the full branch), where both builds have K1-r (a
+   source from before it is A/B'd on K1 and K1-f alone);
 3. calls each build through the port's own wrappers
    (``cuda_kernel.consensus_wire_full`` for K1,
    ``consensus_wire_filter`` for K1-f, ``consensus_wire_resident`` for
-   K1-r) and requires every output bit-identical between the builds;
+   K1-r) and requires every output bit-identical between the builds (all
+   7 of K1-r's);
 4. times each kernel of each build in turns (base, new, new, base, twice):
    torch.profiler device time per launch over 25 launches, and CUDA-event
-   time per launch over 25 back-to-back launches;
+   time per launch over 25 back-to-back launches, beside the byte bound
+   (K1 and K1-r);
 5. estimates from ``cuobjdump -sass`` each kernel's executed instructions
-   per column at the fixed5 batch (see ``per_column_estimate``) and the
+   per column at its first batch (see ``per_column_estimate``; every branch
+   counted as if it ran) and the
    issue-rate bound that implies (4 warp instructions per clock per SM at
    the card's maximum SM clock);
 6. prints one JSON line per result and, last, a JSON summary.
@@ -83,34 +89,48 @@ import numpy as np
 
 import chip_smoke as S
 
-# kernel: (symbol, {batch: (shape (rows, L, reads), longtail sizes, seed)}),
-# each batch as chip_smoke's main-path phase makes it for that kernel
+# kernel: (symbol, {batch: (shape (rows, L, reads), data, seed)}), each
+# main-path batch as chip_smoke's main-path phase makes it for that kernel
+# (data "family" or "longtail": chip_smoke.main_path_batch; "uniform":
+# chip_smoke.uniform_batch); K1-r also at uniform bases and quals (almost
+# every column with a disagreement) and at 2-row families (most columns'
+# combine takes the full branch)
 KERNELS = {
     "K1": ("consensus_wire_full_kernel", {
-        "fixed5": ((56780, 152, 11356), False, len("k1_fixed")),
-        "longtail": ((52974, 152, 6634), True, len("k1_longtail"))}),
+        "fixed5": ((56780, 152, 11356), "family", len("k1_fixed")),
+        "longtail": ((52974, 152, 6634), "longtail", len("k1_longtail"))}),
     "K1-f": ("consensus_wire_filter_kernel", {
-        "fixed5": ((56780, 152, 11356), False, len("k1f_fixed")),
-        "longtail": ((52974, 152, 6634), True, len("k1f_longtail"))}),
+        "fixed5": ((56780, 152, 11356), "family", len("k1f_fixed")),
+        "longtail": ((52974, 152, 6634), "longtail", len("k1f_longtail"))}),
     "K1-r": ("consensus_wire_resident_kernel", {
-        "duplex": ((71172, 128, 23724), False, len("k1r_duplex"))}),
+        "duplex": ((71172, 128, 23724), "family", len("k1r_duplex")),
+        "k1r_uniform": ((71172, 128, 23724), "uniform", len("k1r_uniform")),
+        "k1r_two_row": ((71172, 128, 35586), "family", len("k1r_two_row"))}),
 }
+# each kernel's bytes a column, for the byte bound (K1-f's also counts its
+# stats rows and table entries: chip_smoke.py gives its bound)
+COL_BYTES = {"K1": S.FULL_COL_BYTES, "K1-r": S.RESIDENT_COL_BYTES}
 TURNS = 2
 # K4's A/B shapes (n, m, L): the three it is judged at, then the edges
 K4_SHAPES = ((5583, 5583, 8), (4235, 4235, 15), (8191, 8191, 8),
              (2000, 1, 8), (1, 5000, 8), (1500, 1500, 9))
 
 
-def make_call(kernel: str, shape, longtail: bool, seed: int, dev):
-    """The kernel's wrapper call on one main-path batch, and the batch's
-    (rows per read, reads, L)."""
+def make_call(kernel: str, shape, data: str, seed: int, dev):
+    """The kernel's wrapper call on one batch and the batch's (rows per
+    read, reads, L)."""
     import torch
 
     from fgumi_tpu_torch.ops import cuda_kernel
     from fgumi_tpu_torch.ops.kernel import ConsensusKernel
     from fgumi_tpu_torch.ops.tables import quality_tables
 
-    codes, quals, starts, lens = S.main_path_batch(shape, longtail, seed)
+    if data == "uniform":
+        codes, quals, starts = S.uniform_batch(shape, seed)
+        lens = None
+    else:
+        codes, quals, starts, lens = S.main_path_batch(
+            shape, data == "longtail", seed)
     kern = ConsensusKernel(quality_tables(45, 40), dev)
     wire, dict64, starts_d, _ = S.wire_on_device(kern, codes, quals, starts,
                                                  dev, "kernel_ab")
@@ -133,7 +153,7 @@ def make_call(kernel: str, shape, longtail: bool, seed: int, dev):
                 S.MIN_QUAL_C, lens_d, fp.min_reads, emin, fp.min_base_q,
                 fp.per_base)
     J = len(starts) - 1
-    return call, codes.shape[0] / J, J, codes.shape[1]
+    return call, (codes.shape[0] / J, J, codes.shape[1])
 
 
 def bind_hamming(path: str):
@@ -454,12 +474,12 @@ def main():
                 cuda_kernel.bind_resident(lib)
         kernels = {k: v for k, v in KERNELS.items()
                    if k != "K1-r" or resident}
-        fixed = None
+        firsts = {}  # each kernel's first batch: its SASS estimate's
         for kernel, (symbol, batches) in kernels.items():
-            for key, (shape, longtail, seed) in batches.items():
-                call, rows_per_read, J, L = make_call(kernel, shape,
-                                                      longtail, seed, dev)
-                fixed = fixed or (rows_per_read, J, L)
+            for key, (shape, data, seed) in batches.items():
+                call, batch = make_call(kernel, shape, data, seed, dev)
+                rows_per_read, J, L = batch
+                firsts.setdefault(kernel, batch)
                 runs = {k: on(lib, call) for k, lib in libs.items()}
                 a = [t.clone() for t in runs["base"]()]
                 b = [t.clone() for t in runs["new"]()]
@@ -467,8 +487,8 @@ def main():
                 for i, (x, y) in enumerate(zip(a, b)):
                     S.check(torch.equal(x, y), f"{kernel} {key}: output {i} "
                                                "differs between the builds")
-                print(f"{kernel} {key}: outputs bit-identical between base "
-                      "and new", flush=True)
+                print(f"{kernel} {key}: all {len(a)} outputs bit-identical "
+                      "between base and new", flush=True)
                 times = {"base": [], "new": []}
                 for _ in range(TURNS):
                     for kind in ("base", "new", "new", "base"):
@@ -476,16 +496,19 @@ def main():
                         times[kind].append({"device_ms": ms,
                                             "profiled": seen,
                                             "loop_ms": S.loop_ms(runs[kind])})
-                print("ab " + json.dumps({"shape": key, "kernel": kernel,
-                                          "reads": J, "L": L, **times}),
-                      flush=True)
+                rep = {"shape": key, "kernel": kernel, "reads": J, "L": L,
+                       "rows": round(rows_per_read * J), **times}
+                if kernel in COL_BYTES:
+                    rep["bound_ms"] = S.wire_kernel_bytes(
+                        rep["rows"], L, J, COL_BYTES[kernel]) \
+                        / S.HBM_BYTES_PER_S * 1e3
+                print("ab " + json.dumps(rep), flush=True)
                 summary["times"][f"{kernel} {key}"] = {
                     kind: [t["device_ms"] for t in ts]
                     for kind, ts in times.items()}
 
         clock = sm_clock_mhz()
         sms = torch.cuda.get_device_properties(0).multi_processor_count
-        rows_per_read, J, L = fixed
         for kind, path in paths.items():
             save = None
             if args.sass_out:
@@ -493,9 +516,12 @@ def main():
                 save = os.path.join(args.sass_out, f"{kind}.sass")
             funcs = sass_functions(path, save)
             for kernel, (symbol, _) in kernels.items():
+                rows_per_read, J, L = firsts[kernel]
                 insns = funcs[next(k for k in funcs if symbol in k)]
                 rep = {"build": kind, "kernel": kernel,
-                       "method": "cuobjdump -sass, static estimate",
+                       "method": "cuobjdump -sass, static estimate at the "
+                                 "kernel's first batch; every branch counted "
+                                 "as if it ran",
                        **per_column_estimate(insns, rows_per_read, L)}
                 if "per_column" in rep:
                     warp_insns = (rep["per_column"] * J * L

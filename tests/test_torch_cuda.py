@@ -178,6 +178,21 @@ def test_resident_kernel_deep_family(cuda_dev):
     _hold_resident_kernel(cuda_dev, codes, quals, np.full(3, 600))
 
 
+@pytest.mark.parametrize("kind", ["uniform_3x128", "two_row_128"])
+def test_resident_kernel_batches(cuda_dev, kind):
+    """Uniform random bases and quals 2-40 (almost every column with a
+    disagreement) and two-row families of main-path data (most columns'
+    combine takes the full branch): the CPU parity cases' shapes at 4,000
+    reads."""
+    if kind == "two_row_128":
+        counts = np.full(4000, 2)
+        codes, quals, _ = _family_reads(counts, 128, seed=2)
+    else:
+        counts = np.full(4000, 3)
+        codes, quals, _ = _random_reads(counts, 128, seed=3)
+    _hold_resident_kernel(cuda_dev, codes, quals, counts)
+
+
 @pytest.mark.parametrize("counts,L", [((3,) * 4000, 128),
                                       ((600, 2, 600, 5, 1), 48)],
                          ids=["3x4000_L128", "deep_L48"])
@@ -446,16 +461,19 @@ def test_kernel_many_reads(cuda_dev, kernel):
 
 @pytest.mark.parametrize("kernel", KERNELS)
 def test_launch_geometry(cuda_dev, kernel):
-    """The launch's geometry: 8 warps a block, a slice of 2-6 KB a warp,
-    resident blocks from the occupancy query, the dynamic shared memory
-    above 48 KB at wide rows."""
+    """The launch's geometry: 8 warps a block, a slice of 2-6 KB a warp
+    (K1-r: and its 928 B staging of a chunk's narrow planes), resident
+    blocks from the occupancy query, the dynamic shared memory above 48 KB
+    at wide rows."""
     geometry = GEOMETRY[kernel]
+    stage = 928 if kernel == "resident" else 0
     for L, slice_bytes in ((4, 2048), (152, 2432), (336, 5376), (380, 6080),
                            (2048, 6144)):
         geo = geometry(L, 10 ** 6, cuda_dev)
         assert geo["warps_per_block"] == 8
         assert geo["slice_bytes"] == slice_bytes
-        assert geo["shared_bytes"] == 8 * (slice_bytes + 16)
+        assert geo["shared_bytes"] == 8 * (slice_bytes + 16 + stage)
+        assert geo.get("scratch_bytes", 0) == 8 * stage
         assert geo["blocks_per_sm"] >= 1
         assert geo["grid"] == geo["sms"] * geo["blocks_per_sm"]
     assert geometry(2048, 1, cuda_dev)["shared_bytes"] > 48 * 1024

@@ -57,7 +57,7 @@ def no_jax_native(monkeypatch):
 
 # ------------------------------------------------------------------- K1-r
 
-def _batch(counts, L, seed, q0=False, qlo=15):
+def _batch(counts, L, seed, q0=False, qlo=15, err_rate=0.2):
     counts = np.asarray(counts, dtype=np.int64)
     rng = np.random.default_rng(seed)
     N = int(counts.sum())
@@ -65,7 +65,7 @@ def _batch(counts, L, seed, q0=False, qlo=15):
     # below the thresholds
     truth = rng.integers(0, 4, size=(len(counts), L))
     codes = np.repeat(truth, counts, axis=0).astype(np.uint8)
-    err = rng.random((N, L)) < 0.2
+    err = rng.random((N, L)) < err_rate
     codes[err] = rng.integers(0, 5, size=int(err.sum()))
     quals = rng.integers(qlo, 41, size=(N, L)).astype(np.uint8)
     if q0:
@@ -99,15 +99,25 @@ RESIDENT_CASES = [
     ("min_reads_3", [2, 3, 4, 5, 6, 3, 2], 48, False, 3, 45),
     ("q0_entries", [4] * 9, 32, True, 1, 40),
     ("deep_600", [600, 600, 300], 16, False, 1, 40),
+    # uniform random bases and quals 2-40 (almost every column with a
+    # disagreement), and two-row families of main-path data (most columns'
+    # combine takes the full branch)
+    ("uniform_3x128", [3] * 40, 128, False, 1, 30),
+    ("two_row_128", [2] * 60, 128, False, 2, 40),
 ]
+# _batch's data where a case is not a family near a truth with quals 15-40
+# (0-40 with Q0 entries)
+RESIDENT_DATA = {"uniform_3x128": dict(err_rate=1.0, qlo=2),
+                 "two_row_128": dict(err_rate=0.01, qlo=30)}
 
 
 @pytest.mark.parametrize("name,counts,L,q0,min_reads,min_qual",
                          RESIDENT_CASES, ids=[c[0] for c in RESIDENT_CASES])
 def test_wire_resident_matches_xla(name, counts, L, q0, min_reads,
                                    min_qual):
-    codes, quals, starts = _batch(counts, L, seed=len(name) + L, q0=q0,
-                                  qlo=0 if q0 else 15)
+    codes, quals, starts = _batch(
+        counts, L, seed=len(name) + L, q0=q0,
+        **RESIDENT_DATA.get(name, dict(qlo=0 if q0 else 15)))
     J = len(counts)
     wire, dict64, _, port = _resident(codes, quals, starts, min_reads,
                                       min_qual)
