@@ -168,7 +168,26 @@ Phases (any failed check exits nonzero; nothing is caught and passed over):
      the file the command wrote; ``write_indexed``'s virtual offsets
      identical) and inflated at both thread counts (bytes identical), its
      ``io`` line with the MB/s of each, ``os.cpu_count()`` and the CPUs
-     this process may run on;
+     this process may run on; then the ``observe`` phase: ``pipeline_400k``
+     fused on ``cuda``, with and without ``--device-filter``, under
+     ``--trace --run-report --heartbeat 1 --audit-output
+     --flight-dump-dir`` (records and launches identical to the pipeline
+     phase's plain runs; the trace valid Chrome JSON with one
+     ``device.dispatch`` span a launch and spans on the chain stages' and
+     the BGZF pool's threads; the report accepted by the port's validator,
+     which the CPU tests hold equal to the JAX package's, its device
+     section equal to the consensus launches; the output audited; no
+     flight dump; an ``observe`` line with both walls and the span
+     counts), ``pipeline_k4_50k`` under
+     ``writer.compress:corrupt-bytes:1.0:1`` with ``--audit-output`` (exit
+     5, nothing published, one flight dump), and ``fixed5_1M_fast`` at
+     ``--threads 4`` and the fast ``group`` adjacency run traced (spans on
+     the reader, worker, writer and BGZF threads; an ``observe_split``
+     line splitting the process stage into the ``device.dispatch`` and
+     ``device.fetch`` spans nested in it and the rest); each of these
+     four commands is also run plain and with its options in turns
+     (plain, observed, observed, plain; ``turns_*`` walls, ``overhead``
+     the ratio of the medians less one);
 4. kernels at the main-path shapes the runs reported (the fast runs' largest
    batch; the simplex stage's largest batch of each ``cuda`` pipeline run:
    K1 on fused and ``--no-fuse`` ``pipeline_400k`` and on
@@ -2735,6 +2754,313 @@ def io_phase(bam: str) -> dict:
     return line
 
 
+# the observe phase: the kernels' names in a trace's device.dispatch spans
+SPAN_KERNELS = {"K1": "consensus_wire_full", "K1-f": "consensus_wire_filter",
+                "K1-r": "consensus_wire_resident",
+                "K1-p2": "consensus_wire_packed2", "K4": "umi_hamming",
+                "K5": "duplex_combine", "K6": "codec_combine"}
+# the kernels DeviceStats counts as consensus dispatches
+DISPATCH_KERNELS = ("consensus_wire_full", "consensus_wire_filter",
+                    "consensus_wire_resident", "consensus_wire_packed2")
+# the global options of the traced pipeline runs
+OBSERVE_OPTS = ("--trace", "--run-report", "--heartbeat", "--audit-output",
+                "--flight-dump-dir")
+
+
+def trace_summary(path: str, process_span: str = "pipeline.process"):
+    """A ``--trace`` file checked as Chrome JSON and summed: span counts,
+    the threads that recorded spans, the device.dispatch spans per kernel,
+    and the split of ``process_span`` into the device.dispatch and
+    device.fetch spans nested in it (same thread, inside its interval)
+    and the rest, plus the fetch seconds outside it (resolve threads)."""
+    with open(path) as f:
+        obj = json.load(f)
+    events = obj["traceEvents"]
+    check(isinstance(events, list) and events, f"{path}: no traceEvents")
+    names = {}
+    spans = []
+    for e in events:
+        check({"name", "ph", "pid", "tid"} <= set(e),
+              f"{path}: malformed event {e}")
+        if e["ph"] == "M" and e["name"] == "thread_name":
+            names[e["tid"]] = e["args"]["name"]
+        elif e["ph"] == "X":
+            check(e["dur"] >= 0 and "ts" in e, f"{path}: bad span {e}")
+            spans.append(e)
+    check(not any(e["name"] == "trace.truncated" for e in events),
+          f"{path}: the trace was truncated")
+    counts = {}
+    for e in spans:
+        counts[e["name"]] = counts.get(e["name"], 0) + 1
+    dispatch = {}
+    for e in spans:
+        if e["name"] == "device.dispatch":
+            k = SPAN_KERNELS[e["args"]["what"]]
+            dispatch[k] = dispatch.get(k, 0) + 1
+    # nesting: device spans inside a process span of the same thread
+    proc = {}
+    for e in spans:
+        if e["name"] == process_span:
+            proc.setdefault(e["tid"], []).append(
+                (e["ts"], e["ts"] + e["dur"]))
+    split = {"process_s": sum(b - a for v in proc.values()
+                              for a, b in v) / 1e6,
+             "dispatch_s": 0.0, "fetch_s": 0.0, "fetch_outside_s": 0.0,
+             "dispatch_outside_s": 0.0}
+    for e in spans:
+        if e["name"] not in ("device.dispatch", "device.fetch"):
+            continue
+        kind = "dispatch" if e["name"] == "device.dispatch" else "fetch"
+        inside = any(a <= e["ts"] and e["ts"] + e["dur"] <= b + 0.2
+                     for a, b in proc.get(e["tid"], ()))
+        split[f"{kind}_s" if inside else f"{kind}_outside_s"] += \
+            e["dur"] / 1e6
+    split["rest_s"] = split["process_s"] - split["dispatch_s"] \
+        - split["fetch_s"]
+    threads = sorted({names.get(e["tid"], "?") for e in spans})
+    return {"spans": len(spans), "by_name": counts, "dispatch": dispatch,
+            "threads": threads, "split": split}
+
+
+def _threads_with(summary, prefixes):
+    return {p: any(t.startswith(p) for t in summary["threads"])
+            for p in prefixes}
+
+
+def check_traced_run(name, counts, tr, report_path, prefixes):
+    """A traced run's trace and run report against its launch counts: one
+    device.dispatch span a launch of each kernel, spans on the threads of
+    ``prefixes``, a report its validator accepts with a device section
+    that agrees with the counts."""
+    from fgumi_tpu_torch.observe.report import validate_report
+
+    launched = {k: n for k, n in counts.items() if n and k in
+                SPAN_KERNELS.values()}
+    check(tr["dispatch"] == launched,
+          f"{name}: device.dispatch spans {tr['dispatch']}, launches "
+          f"{launched}")
+    seen = _threads_with(tr, prefixes)
+    check(all(seen.values()), f"{name}: no spans on {seen} "
+                              f"(threads {tr['threads']})")
+    with open(report_path) as f:
+        report = json.load(f)
+    errors = validate_report(report)
+    check(errors == [], f"{name}: report refused: {errors}")
+    check(report["exit_status"] == 0, f"{name}: exit {report['exit_status']}")
+    consensus = sum(counts[k] for k in DISPATCH_KERNELS)
+    dev = report.get("device", {})
+    check(dev.get("dispatches", 0) == consensus,
+          f"{name}: the report's device section has {dev.get('dispatches')} "
+          f"dispatches, the kernels {consensus}")
+    check(report["metrics"].get("device.dispatches", 0) == consensus,
+          f"{name}: device.dispatches {report['metrics']}")
+    return report
+
+
+# the latency sums of an observed run's report that the options add
+OPTION_COSTS = ("io.output_audit_s", "io.commit_s")
+
+
+def observe_turns(name, argv, work, observed_opts):
+    """The wall of ``argv`` (a command's own ``--stats-json`` wall) plain
+    and under ``observed_opts`` in turns on cuda: plain, observed, observed,
+    plain. Returns (plain walls, observed walls, the observed runs' report
+    sums of :data:`OPTION_COSTS`)."""
+    from fgumi_tpu_torch import cli
+
+    walls = {"plain": [], "observed": []}
+    costs = []
+    for i, kind in enumerate(("plain", "observed", "observed", "plain")):
+        base = os.path.join(work, f"turns_{name}_{i}")
+        opts = [o.replace("BASE", base) for o in observed_opts] \
+            if kind == "observed" else []
+        rc = cli.main([*opts, *argv, "-o", base + ".bam", "--device", "cuda",
+                       "--stats-json", base + ".json"])
+        check(rc == 0, f"turns {name} {kind}: exited {rc}")
+        with open(base + ".json") as f:
+            walls[kind].append(json.load(f)["wall_s"])
+        if kind == "observed":
+            with open(base + ".report.json") as f:
+                latency = json.load(f).get("latency", {})
+            costs.append({k: latency[k]["sum"] for k in OPTION_COSTS
+                          if k in latency})
+    return walls["plain"], walls["observed"], costs
+
+
+def observe_pipeline_run(label, plain, r1, r2, flags, work):
+    """``pipeline_400k`` fused on cuda under every telemetry option, held
+    to the plain run of the pipeline phase (same flags): records, launches,
+    the trace and the report. Returns its summary."""
+    from fgumi_tpu_torch import cli
+
+    base = os.path.join(work, f"observe_{label}")
+    out, tr_path = base + ".bam", base + ".trace.json"
+    rpt, dumps = base + ".report.json", base + ".flight"
+    reset_counts()
+    t0 = time.monotonic()
+    rc = cli.main(["--trace", tr_path, "--run-report", rpt, "--heartbeat",
+                   "1", "--audit-output", "--flight-dump-dir", dumps,
+                   "pipeline", "-i", r1, r2, *PIPELINE_OPTS, "-o", out,
+                   "--device", "cuda", "--stats-json", out + ".json",
+                   *flags])
+    wall = time.monotonic() - t0
+    counts = read_counts()
+    check(rc == 0, f"observe {label}: pipeline exited {rc}")
+    check(records(out) == records(plain["out"]),
+          f"observe {label}: records differ from the plain run's")
+    check(counts == plain["launches"],
+          f"observe {label}: launches {counts}, the plain run's "
+          f"{plain['launches']}")
+    tr = trace_summary(tr_path)
+    report = check_traced_run(f"observe {label}", counts, tr, rpt,
+                              ("fgumi-chain-", "fgumi-bgzf"))
+    check(not os.path.exists(dumps) or not os.listdir(dumps),
+          f"observe {label}: a flight dump on a clean run")
+    check(report["latency"]["io.output_audit_s"]["count"] == 1,
+          f"observe {label}: the output was not audited")
+    with open(out + ".json") as f:
+        own_wall = json.load(f)["wall_s"]
+    turns_plain, turns_observed, costs = observe_turns(
+        f"pipeline_400k_{label}",
+        ["pipeline", "-i", r1, r2, *PIPELINE_OPTS, *flags], work,
+        ["--trace", "BASE.trace.json", "--run-report", "BASE.report.json",
+         "--heartbeat", "1", "--audit-output", "--flight-dump-dir",
+         "BASE.flight"])
+    summary = {
+        "case": f"pipeline_400k_{label}", "options": list(OBSERVE_OPTS),
+        "wall_plain_s": plain["wall_s"], "wall_observed_s": own_wall,
+        "main_wall_observed_s": wall,
+        "turns_plain_s": turns_plain, "turns_observed_s": turns_observed,
+        "turns_option_costs_s": costs,
+        "stage_wall_plain_s": plain["stage_wall_s"],
+        "stage_wall_observed_s": {k: v for k, v in report["stages"].items()
+                                  if k in STAGES},
+        "overhead": statistics.median(turns_observed)
+        / statistics.median(turns_plain) - 1.0,
+        "spans": tr["spans"], "by_name": tr["by_name"],
+        "dispatch_spans": tr["dispatch"], "launches": counts,
+        "threads": tr["threads"], "report_stages": sorted(report["stages"]),
+        "report_records": report.get("records"),
+        "records_identical": True}
+    print("observe " + json.dumps(summary), flush=True)
+    return summary
+
+
+def observe_fault_run(fastq, work):
+    """``writer.compress:corrupt-bytes:1.0:1`` under ``--audit-output``:
+    exit 5, no output published, one flight dump."""
+    from fgumi_tpu_torch import cli
+    from fgumi_tpu_torch.observe import flight
+    from fgumi_tpu_torch.observe.report import validate_report
+    from fgumi_tpu_torch.utils import faults
+
+    base = os.path.join(work, "observe_fault")
+    out, rpt, dumps = base + ".bam", base + ".report.json", base + ".flight"
+    flight.FLIGHT.reset()
+    os.environ["FGUMI_TPU_FAULT"] = "writer.compress:corrupt-bytes:1.0:1"
+    faults.reset()
+    try:
+        rc = cli.main(["--audit-output", "--flight-dump-dir", dumps,
+                       "--run-report", rpt, "pipeline", "-i", *fastq,
+                       *PIPELINE_OPTS, "-o", out, "--device", "cuda"])
+    finally:
+        del os.environ["FGUMI_TPU_FAULT"]
+        faults.reset()
+        flight.FLIGHT.reset()
+    check(rc == 5, f"observe fault: exited {rc}, not 5")
+    check(not os.path.exists(out), "observe fault: the output was published")
+    left = [n for n in os.listdir(work) if n.startswith(".observe_fault")]
+    check(left == [], f"observe fault: temporaries left: {left}")
+    dump_files = os.listdir(dumps)
+    check(len(dump_files) == 1 and "output-integrity" in dump_files[0],
+          f"observe fault: flight dumps {dump_files}")
+    with open(os.path.join(dumps, dump_files[0])) as f:
+        dump = json.load(f)
+    check(flight.validate_dump(dump) == [], "observe fault: bad dump")
+    with open(rpt) as f:
+        report = json.load(f)
+    check(validate_report(report) == [] and report["exit_status"] == 5,
+          f"observe fault: report {report.get('exit_status')}")
+    summary = {"case": "pipeline_k4_50k_audit_fault", "exit": rc,
+               "published": False, "flight_dump": dump_files[0],
+               "exception": dump["exception"]["type"]}
+    print("observe " + json.dumps(summary), flush=True)
+    return summary
+
+
+def observe_split_run(name, argv, serial, work, prefixes):
+    """One traced, reported run on cuda for where the time goes: records
+    and launches equal to ``serial``'s, the trace held to its launches,
+    and the process stage split into dispatch, fetch and the rest."""
+    from fgumi_tpu_torch import cli
+
+    base = os.path.join(work, f"observe_{name}")
+    out, tr_path, rpt = base + ".bam", base + ".trace.json", \
+        base + ".report.json"
+    reset_counts()
+    t0 = time.monotonic()
+    rc = cli.main(["--trace", tr_path, "--run-report", rpt, *argv, "-o",
+                   out, "--device", "cuda"])
+    wall = time.monotonic() - t0
+    counts = read_counts()
+    check(rc == 0, f"observe {name}: exited {rc}")
+    if serial["out"] not in _SERIAL_RECORDS:
+        _SERIAL_RECORDS[serial["out"]] = records(serial["out"])
+    check(records(out) == _SERIAL_RECORDS[serial["out"]],
+          f"observe {name}: records differ from the serial run's")
+    check(counts == serial["launches"],
+          f"observe {name}: launches {counts}, the serial run's "
+          f"{serial['launches']}")
+    tr = trace_summary(tr_path)
+    report = check_traced_run(f"observe {name}", counts, tr, rpt, prefixes)
+    turns_plain, turns_traced, _ = observe_turns(
+        name, argv, work, ["--trace", "BASE.trace.json", "--run-report",
+                           "BASE.report.json"])
+    summary = {"case": name, "wall_s": wall,
+               "serial_wall_s": serial["wall_s"],
+               "turns_plain_s": turns_plain, "turns_traced_s": turns_traced,
+               "overhead": statistics.median(turns_traced)
+               / statistics.median(turns_plain) - 1.0,
+               "spans": tr["spans"], "by_name": tr["by_name"],
+               "threads": tr["threads"], "split": tr["split"],
+               "stages": report["stages"], "launches": counts,
+               "latency": {k: v for k, v in report["latency"].items()
+                           if k.startswith(("device.", "io.bgzf"))},
+               "records_identical": True}
+    print("observe_split " + json.dumps(summary), flush=True)
+    return summary
+
+
+def observe_phase(paths, work, pipes, staged, serial_runs):
+    """The telemetry layer on the card: ``pipeline_400k`` fused, with and
+    without ``--device-filter``, under every telemetry option against the
+    pipeline phase's plain runs; the audit fault; ``fixed5_1M_fast`` at
+    ``--threads 4`` and the fast ``group`` adjacency run traced, with
+    their process stage split."""
+    r1, r2 = paths["pipeline_400k"]
+    p400 = pipes["pipeline_400k"]
+    out = {
+        "fused": observe_pipeline_run("fused", p400["fused_cuda"], r1, r2,
+                                      [], work),
+        "device_filter": observe_pipeline_run(
+            "device_filter", p400["device_filter_cuda"], r1, r2,
+            ["--device-filter"], work),
+        "fault": observe_fault_run(paths["pipeline_k4_50k"], work)}
+    t4 = dict(serial_runs["fixed5_1M_fast"],
+              launches=staged["fixed5_1M_fast_t4"]["launches"],
+              wall_s=staged["fixed5_1M_fast_t4"]["wall_s"])
+    out["fixed5_1M_fast_t4"] = observe_split_run(
+        "fixed5_1M_fast_t4", ["simplex", "-i", paths["fixed5_1M"],
+                              "--threads", "4"], t4, work,
+        ("fgumi-reader", "fgumi-worker-", "fgumi-writer", "fgumi-bgzf"))
+    out["group_fast"] = observe_split_run(
+        "amplicon_group_adjacency_fast",
+        ["group", "-i", paths["amplicon_group"], "--strategy", "adjacency"],
+        serial_runs["amplicon_group_adjacency_fast"], work,
+        ("MainThread", "fgumi-bgzf"))
+    return out
+
+
 def libdeflate_probe() -> str:
     """Whether this host has libdeflate's header and shared library (the
     port links no compression library; this only looks)."""
@@ -2936,6 +3262,8 @@ def main():
         staged = staged_phase(paths, work, staged_serial_runs(
             e2e, groups, pipes, duplexes, codecs))
         io_phase(e2e["fixed5_1M"]["fast"]["out"])
+        observe_phase(paths, work, pipes, staged, staged_serial_runs(
+            e2e, groups, pipes, duplexes, codecs))
 
     shapes = {case: {kind: s["largest_batch"] for kind, s in runs.items()}
               for case, runs in e2e.items()}

@@ -29,9 +29,15 @@ and runs its batch engine unless ``--classic`` (or ``--ref``,
 for the per-record one; both take the EM-Seq/TAPS depth mask, and the
 per-record one the reference-dependent methylation filters. A
 corrupt or truncated input exits 2 with one line, as the reference's
-does; so do its other exits: 1 on a broken output pipe, 4 on a full disk
-(``ENOSPC``) and 130 on an interrupt, each with at most one line and no
-traceback. ``extract`` turns FASTQ
+does; so do its other exits: 1 on a broken output pipe, 3 on an injected
+fault (``FGUMI_TPU_FAULT``), 4 on a full disk (``ENOSPC``) or another
+exhausted resource, 5 on a refuted ``--audit-output`` and 130 on an
+interrupt, each with at most one line and no traceback. The reference's
+global options come before the command (``-v``, ``--log-level``,
+``--no-atomic-output``, ``--audit-output``, ``--trace``, ``--run-report``,
+``--heartbeat``, ``--flight-dump-dir``; ``observe/``), and the outermost
+invocation owns the trace, the run report and the heartbeat; ``trace-merge``
+stitches trace files. ``extract`` turns FASTQ
 into unmapped BAM, ``sort`` orders BAM template-coordinate, coordinate
 (with a BAI or CSI index) or queryname on the native sort engine, and
 ``pipeline`` chains extract ⇒ sort ⇒ group ⇒ simplex ⇒ filter in one
@@ -60,7 +66,7 @@ import os
 import sys
 import time
 
-from .io.errors import InputFormatError
+from .io.errors import InputFormatError, OutputIntegrityError
 from .utils.governor import GOVERNOR, ResourceExhausted
 
 log = logging.getLogger("fgumi_tpu_torch")
@@ -1960,12 +1966,16 @@ def _pipeline_fused(args, walls):
     exit code. Returns (exit code, the channels' counters)."""
     import threading
 
+    from .observe import heartbeat as _hb
+    from .observe.metrics import METRICS
+    from .observe.scope import spawn_thread
     from .pipeline_chain import (ChainAborted, ChainChannel,
                                  ChannelBamWriter, ChannelBatchReader)
 
     stages = _pipeline_stage_argvs(args, lambda name: f"<fused:{name}>")
     parser = build_parser()
-    ns = {name: parser.parse_args(argv) for name, argv in stages}
+    pre = _forwarded_globals(args)
+    ns = {name: parser.parse_args(pre + argv) for name, argv in stages}
     dfilt = args.device_filter
     c1 = ChainChannel("extract.sort")
     c2 = ChainChannel("sort.group")
@@ -2004,11 +2014,15 @@ def _pipeline_fused(args, walls):
         outs["filter"] = []
 
     results = {}
+    lock = threading.Lock()
+    active = set()
 
     def runner(name, argv):
         t0 = time.monotonic()
         rc = err = None
         aborted = False
+        with lock:
+            active.add(name)
         try:
             # each stage maps its compat flags, as main() does for a
             # staged stage
@@ -2020,7 +2034,12 @@ def _pipeline_fused(args, walls):
             err = e
         finally:
             walls[name] = time.monotonic() - t0
-            results[name] = {"rc": rc, "error": err, "aborted": aborted}
+            METRICS.inc(f"pipeline.stage.{name}.wall_s",
+                        round(walls[name], 6))
+            with lock:
+                active.discard(name)
+                results[name] = {"rc": rc, "error": err,
+                                 "aborted": aborted}
             if rc == 0 and err is None and not aborted:
                 for c in outs[name]:
                     c.close()  # backstop: the stage's writer closed it
@@ -2031,24 +2050,43 @@ def _pipeline_fused(args, walls):
                 for c in ins[name]:
                     c.cancel()
 
-    threads = [threading.Thread(target=runner, args=(name, argv),
-                                name=f"fgumi-chain-{name}")
+    METRICS.set("pipeline.chain.fused", 1)
+
+    def running_stages():
+        # for the heartbeat: the started stages past their input-header
+        # wait (a stage waiting for the sort's merge is not running yet)
+        with lock:
+            started = [n for n, _ in stages if n in active]
+        return {"stage": "+".join(
+            n for n in started
+            if all(c.has_header for c in ins[n])) or "-"}
+
+    gauge_token = _hb.register_gauge(running_stages)
+    # each stage thread runs in a copy of this context: its spans and
+    # counters land in this command's telemetry scope
+    threads = [spawn_thread(runner, args=(name, argv),
+                            name=f"fgumi-chain-{name}")
                for name, argv in stages]
-    for t in threads:
-        t.start()
     try:
         for t in threads:
-            while t.is_alive():
-                t.join(timeout=0.2)
-    except BaseException:
-        # KeyboardInterrupt (or anything else) on the calling thread: tear
-        # the chain down so every stage unwinds, then re-raise
+            t.start()
+        try:
+            for t in threads:
+                while t.is_alive():
+                    t.join(timeout=0.2)
+        except BaseException:
+            # KeyboardInterrupt (or anything else) on the calling thread:
+            # tear the chain down so every stage unwinds, then re-raise
+            for c in chans:
+                c.abort("pipeline interrupted")
+                c.cancel()
+            for t in threads:
+                t.join(timeout=10)
+            raise
+    finally:
+        _hb.unregister_gauge(gauge_token)
         for c in chans:
-            c.abort("pipeline interrupted")
-            c.cancel()
-        for t in threads:
-            t.join(timeout=10)
-        raise
+            c.fold_metrics()
     chan_stats = {c.name: c.stats() for c in chans}
     for name, _ in stages:
         r = results[name]
@@ -2084,15 +2122,26 @@ def _pipeline_staged(args, walls):
     def j(name):
         return os.path.join(tmp, name)
 
+    from .observe import heartbeat as _hb
+    from .observe.metrics import METRICS
+
     consumed = {"sort": "unmapped.bam", "group": "sorted.bam",
                 "simplex": "grouped.bam", "filter": "cons.bam"}
+    # each stage re-enters main(), which sets the atomic-commit and audit
+    # flags from its own arguments: the outer ones travel with it
+    pre = _forwarded_globals(args)
+    current = {"stage": "-"}
+    gauge_token = _hb.register_gauge(lambda: dict(current))
     try:
         for name, argv in _pipeline_stage_argvs(args, j):
             # a hard watermark stops the chain before its next stage
             GOVERNOR.check_hard()
+            current["stage"] = name
             t0 = time.monotonic()
-            rc = main(argv)
+            rc = main(pre + argv)
             walls[name] = time.monotonic() - t0
+            METRICS.inc(f"pipeline.stage.{name}.wall_s",
+                        round(walls[name], 6))
             if rc:
                 log.error("pipeline: stage %s failed (rc=%d)", name, rc)
                 return rc
@@ -2101,9 +2150,18 @@ def _pipeline_staged(args, walls):
             if prev and not keep:
                 os.unlink(j(prev))
     finally:
+        _hb.unregister_gauge(gauge_token)
         if not keep:
             shutil.rmtree(tmp, ignore_errors=True)
     return 0
+
+
+def _forwarded_globals(args) -> list:
+    """The global options a pipeline's stages inherit as arguments."""
+    pre = ["--no-atomic-output"] if args.no_atomic_output else []
+    if args.audit_output:
+        pre.append("--audit-output")
+    return pre
 
 
 def _add_extract(sub):
@@ -2292,6 +2350,7 @@ def cmd_sort(args, argv, source=None, sink=None):
     from .sort.external import NativeExternalSorter, header_tags_for_order
     from .sort.keys import make_batch_keys_fn, make_key_bytes_fn
     from .utils.memory import parse_size, resolve_budget
+    from .utils.progress import ProgressTracker
 
     # the sort/merge thread knobs size the reference's one worker pool
     args.threads = max(args.threads, args.sort_threads or 0,
@@ -2354,18 +2413,27 @@ def cmd_sort(args, argv, source=None, sink=None):
                  and sink is None else None)
         # --threads N > 1: N - 1 spill workers (the merge prefetches with
         # two or more)
+        progress = ProgressTracker("sort")
+        wprogress = ProgressTracker("sort-write")
         with NativeExternalSorter(max_bytes=budget, tmp_dir=args.tmp_dir,
                                   max_records=args.max_records_in_ram,
                                   spill_workers=max(args.threads - 1, 0)) \
                 as sorter:
-            sorter.ingest_batches(iter(reader), batch_keys_fn)
+            sorter.ingest_batches(iter(reader), batch_keys_fn, progress.add)
+            progress.finish()
             runs = sorter.n_runs
             with _output(args, out_header, sink) as writer:
                 if index is None:
                     for arr in sorter.iter_sorted_wire():
                         writer.write_serialized(arr)
+                        # the reference counts the fused chain's blobs
+                        if sink is not None:
+                            wprogress.add()
                 else:
                     _write_indexed_chunks(sorter, writer, index)
+                if sink is None:
+                    wprogress.add(sorter.n_records)
+            wprogress.finish()
         if index is not None:
             index.write(args.output + "." + args.index_format)
     dt = time.monotonic() - t0
@@ -2541,12 +2609,146 @@ def cmd_simulate_fastq(args, argv):
     return 0
 
 
+def _add_trace_merge(sub):
+    p = sub.add_parser(
+        "trace-merge",
+        help="Stitch several --trace files into one Perfetto timeline, "
+             "clock-aligned on each file's wall-clock anchor")
+    p.add_argument("traces", nargs="+", metavar="TRACE.json",
+                   help="Chrome trace-event files to merge (each process's "
+                        "--trace output)")
+    p.add_argument("-o", "--output", required=True, metavar="PATH",
+                   help="merged trace file to write")
+    p.add_argument("--trace-id", default=None, metavar="HEX32",
+                   help="keep only inputs stamped with this trace id; the "
+                        "others are skipped (recorded under "
+                        "otherData.skipped)")
+    p.add_argument("--shift", action="append", default=None,
+                   metavar="FILE=SECONDS", dest="shifts",
+                   help="add SECONDS to FILE's timeline on top of the "
+                        "anchor alignment (FILE matches the path or its "
+                        "basename; repeat per file)")
+    p.add_argument("--force", action="store_true",
+                   help="merge even when the inputs carry different trace "
+                        "ids (default: that is an error)")
+    p.set_defaults(func=cmd_trace_merge)
+
+
+def cmd_trace_merge(args, argv):
+    from .observe.trace_merge import (MergeError, merge_traces,
+                                      parse_shift_specs, write_merged)
+
+    try:
+        shifts = parse_shift_specs(args.shifts)
+        merged = merge_traces(args.traces, trace_id=args.trace_id,
+                              shifts=shifts, force=args.force)
+        write_merged(merged, args.output)
+    except MergeError as e:
+        log.error("trace-merge: %s", e)
+        return 2
+    except OSError as e:
+        log.error("trace-merge: cannot write %s: %s", args.output, e)
+        return 2
+    for skipped in merged["otherData"].get("skipped") or []:
+        log.info("trace-merge: skipped %s (trace id %s)", skipped["path"],
+                 skipped.get("trace_id"))
+    log.info("trace-merge: merged %d file(s), %d event(s) -> %s",
+             len(merged["otherData"]["merged_from"]),
+             len(merged["traceEvents"]), args.output)
+    return 0
+
+
+def _add_global_options(parser):
+    """The reference's global options (fgumi_tpu/cli.py build_parser)."""
+    parser.add_argument("-v", "--verbose", action="store_true",
+                        help="alias for --log-level debug (an explicit "
+                             "--log-level wins)")
+    parser.add_argument(
+        "--log-level", choices=["debug", "info", "warning", "error"],
+        default=None,
+        help="log verbosity (also FGUMI_TPU_LOG; default info); every line "
+             "carries the elapsed time and the emitting thread's name")
+    parser.add_argument(
+        "--no-atomic-output", action="store_true",
+        help="write outputs directly to their final names instead of a "
+             "temporary file renamed on success (for FIFO outputs; also "
+             "FGUMI_TPU_NO_ATOMIC=1)")
+    parser.add_argument(
+        "--audit-output", action="store_true",
+        help="verify every written BAM end to end (each BGZF member's "
+             "CRC32/ISIZE, the BAM structure, the record count and a digest "
+             "of the records against the writer's own tallies) before the "
+             "rename publishes it; a mismatch exits 5 and publishes nothing "
+             "(also FGUMI_TPU_AUDIT_OUTPUT=1)")
+    parser.add_argument(
+        "--trace", default=None, metavar="PATH",
+        help="record pipeline, I/O and device spans and write a Chrome "
+             "trace-event JSON that Perfetto opens (also FGUMI_TPU_TRACE)")
+    parser.add_argument(
+        "--run-report", default=None, metavar="PATH",
+        help="write a schema-versioned JSON run report (wall time, "
+             "per-stage busy/blocked, queue occupancy, device and I/O "
+             "counters, latency histograms, exit status) at command end "
+             "(also FGUMI_TPU_RUN_REPORT)")
+    parser.add_argument(
+        "--heartbeat", type=float, default=None, metavar="SECONDS",
+        help="log a one-line progress heartbeat (stage counters, queue "
+             "depths, device activity, records/s and ETA, RSS) every N "
+             "seconds (also FGUMI_TPU_HEARTBEAT_S; 0 = off, the default)")
+    parser.add_argument(
+        "--flight-dump-dir", default=None, metavar="DIR",
+        help="write flight-recorder black boxes (recent events, every "
+             "thread's stack, metrics and device snapshots) here on an "
+             "unhandled exception, resource exhaustion, a refuted output "
+             "audit and SIGTERM (also FGUMI_TPU_FLIGHT)")
+    g = parser.add_argument_group(
+        "not yet ported / JAX-only",
+        "reference options this port refuses (exit 2)")
+    g.add_argument("--profile", default=None, metavar="PATH",
+                   help="deployment profile (not yet ported)")
+    g.add_argument("--mesh", default=None, metavar="dpNxspM",
+                   help="device mesh (not yet ported)")
+    g.add_argument("--xla-profile", default=None, metavar="DIR",
+                   help="jax.profiler capture (JAX-only)")
+    g.add_argument("--shape-buckets", default=None, metavar="GROWTH[:CAP]",
+                   help="XLA shape-bucket ladder (JAX-only)")
+
+
+#: global options refused with exit 2: (dest, flag, reason)
+_GLOBAL_REFUSED = (
+    ("profile", "--profile", "not yet ported (deployment profiles come "
+                             "with serving and the tuner)"),
+    ("mesh", "--mesh", "not yet ported (multi-GPU)"),
+    ("xla_profile", "--xla-profile",
+     "JAX-only (a jax.profiler capture); use --trace"),
+    ("shape_buckets", "--shape-buckets",
+     "JAX-only (PyTorch compiles nothing per shape)"),
+)
+
+
+def _refuse_globals(args) -> int:
+    """Exit 2 with one line for a refused global option or a fault spec
+    the port cannot fire, before any output is opened; else 0."""
+    for dest, flag, reason in _GLOBAL_REFUSED:
+        if getattr(args, dest, None) is not None:
+            log.error("%s: %s", flag, reason)
+            return 2
+    from .utils import faults
+
+    spec = faults.unported_spec()
+    if spec is not None:
+        log.error("FGUMI_TPU_FAULT %s: not yet ported (the device fault "
+                  "points and kind oom need the device retry and batch "
+                  "split)", spec)
+        return 2
+    return 0
+
+
 def build_parser():
     parser = argparse.ArgumentParser(
         prog=PROGRAM_ID,
         description="UMI consensus calling on PyTorch and CUDA")
-    parser.add_argument("--log-level", default="info",
-                        choices=["debug", "info", "warning", "error"])
+    _add_global_options(parser)
     sub = parser.add_subparsers(dest="command", required=True)
     _add_pipeline(sub)
     _add_extract(sub)
@@ -2557,31 +2759,18 @@ def build_parser():
     _add_filter(sub)
     _add_group(sub)
     _add_simulate(sub)
+    _add_trace_merge(sub)
     return parser
 
 
-def main(argv=None):
-    argv = list(sys.argv[1:] if argv is None else argv)
-    args = build_parser().parse_args(argv)
-    logging.basicConfig(level=getattr(logging, args.log_level.upper()),
-                        format="%(asctime)s %(levelname)s %(name)s: "
-                               "%(message)s")
-    log.setLevel(getattr(logging, args.log_level.upper()))
-    rc = _apply_pipeline_compat(args)
-    if rc:
-        return rc
-    depth = _MAIN_DEPTH.get()
-    if depth == 0:
-        # a command's --stats counts its own dispatches (the staged
-        # pipeline's stages, nested calls, add to their command's)
-        from .ops.kernel import DEVICE_STATS
+def _run_command(args, argv):
+    """Dispatch to the subcommand under the reference's exit-code contract:
+    2 on a diagnosed input problem, 3 on an injected fault, 4 on resource
+    exhaustion or a full disk, 5 on a refuted output audit, 1 on a broken
+    pipe and 130 on an interrupt, each with at most one line."""
+    from .observe.flight import FLIGHT
+    from .utils.faults import InjectedFault
 
-        DEVICE_STATS.reset()
-        # the process's resource governor: budget rebalancing and the
-        # memory and disk watermarks (idempotent: one thread a process;
-        # FGUMI_TPU_GOVERNOR=0 keeps every budget static)
-        GOVERNOR.maybe_start()
-    token = _MAIN_DEPTH.set(depth + 1)
     try:
         return args.func(args, [PROGRAM_ID] + argv)
     except (InputFormatError, EOFError) as e:
@@ -2589,9 +2778,21 @@ def main(argv=None):
         # record): one line with the path and offset, not a traceback
         log.error("%s", e)
         return 2
+    except InjectedFault as e:
+        # chaos testing: an injected fault that reached the top is a clean
+        # failure with an exit code of its own
+        log.error("%s", e)
+        return 3
+    except OutputIntegrityError as e:
+        # --audit-output refuted the written file: the rename was aborted,
+        # nothing was published, and the black box keeps the evidence
+        FLIGHT.dump("output-integrity", exc=e)
+        log.error("%s", e)
+        return 5
     except ResourceExhausted as e:
         # a hard resource limit (a full disk, an RSS or disk watermark):
         # the error paths already removed the partial outputs and spills
+        FLIGHT.dump("resource-exhausted", exc=e)
         log.error("%s", e)
         return 4
     except BrokenPipeError:
@@ -2607,11 +2808,134 @@ def main(argv=None):
         return 1
     except OSError as e:
         if e.errno == errno.ENOSPC:
+            GOVERNOR.record_event("enospc", where="unhandled")
             log.error("disk full: %s", e)
             return 4
         raise
     except KeyboardInterrupt:
         log.error("interrupted")
         return 130
+
+
+def _telemetry_config(args):
+    """(trace path, report path, heartbeat seconds) from the options and
+    the environment."""
+    trace_path = args.trace or os.environ.get("FGUMI_TPU_TRACE") or None
+    report_path = (args.run_report
+                   or os.environ.get("FGUMI_TPU_RUN_REPORT") or None)
+    hb_s = args.heartbeat
+    if hb_s is None:
+        try:
+            hb_s = float(os.environ.get("FGUMI_TPU_HEARTBEAT_S", "0") or 0)
+        except ValueError:
+            log.warning("FGUMI_TPU_HEARTBEAT_S=%s: not a number; heartbeat "
+                        "off", os.environ["FGUMI_TPU_HEARTBEAT_S"])
+            hb_s = 0.0
+    return trace_path, report_path, hb_s
+
+
+def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = build_parser().parse_args(argv)
+    from .io.bam import set_audit_output
+    from .observe.logs import setup_logging
+    from .utils.atomic import set_atomic_enabled
+
+    # a nested stage of the staged pipeline keeps the outer level unless
+    # it carries a level of its own
+    depth = _MAIN_DEPTH.get()
+    if depth == 0 or args.log_level or args.verbose:
+        setup_logging(args.log_level, args.verbose)
+    # set both ways: a previous in-process invocation's flag must not leak
+    # into this one (the staged pipeline forwards them to its stages)
+    set_atomic_enabled(not args.no_atomic_output)
+    set_audit_output(bool(args.audit_output))
+    rc = _refuse_globals(args) or _apply_pipeline_compat(args)
+    if rc:
+        return rc
+    if depth > 0:
+        # a nested stage: the outer invocation owns the telemetry
+        return _run_command(args, argv)
+    # each top-level invocation gets its own telemetry scope (metrics,
+    # DeviceStats, tracer), so in-process commands run one after another
+    # or at once never mix counters; nested stages accumulate into it
+    from .observe.scope import (adopt_job_context, publish_to_global,
+                                scoped_telemetry)
+
+    with scoped_telemetry(args.command) as scope:
+        adopt_job_context(scope)
+        try:
+            return _main_scoped(args, argv)
+        finally:
+            # the finished command's counters stay readable on the global
+            # METRICS and DEVICE_STATS after main returns
+            publish_to_global(scope)
+
+
+def _main_scoped(args, argv):
+    """The outermost invocation's body: the telemetry lifecycle (flight
+    recorder, trace, heartbeat, run report) around the dispatch."""
+    from .observe.flight import FLIGHT, install_signal_dump
+
+    trace_path, report_path, hb_s = _telemetry_config(args)
+    # the process's resource governor: budget rebalancing and the memory
+    # and disk watermarks (idempotent: one thread a process;
+    # FGUMI_TPU_GOVERNOR=0 keeps every budget static)
+    GOVERNOR.maybe_start()
+    if args.flight_dump_dir:
+        FLIGHT.configure(args.flight_dump_dir)
+    FLIGHT.note("command.start", command=args.command)
+    install_signal_dump()
+    tracer = hb = None
+    if trace_path:
+        from .observe.scope import current_scope
+        from .observe.trace import start_trace
+
+        tracer = start_trace()
+        scope = current_scope()
+        if scope is not None and (scope.trace_id or scope.job_id):
+            tracer.set_context(
+                trace_id=scope.trace_id,
+                parent_span_id=scope.parent_span_id,
+                process_label=(f"backend {scope.job_id}" if scope.job_id
+                               else None))
+    if hb_s > 0:
+        from .observe.heartbeat import Heartbeat
+
+        hb = Heartbeat(hb_s)
+    t0 = time.monotonic()
+    t0_unix = time.time()
+    rc = 1  # the report's value when an unmapped exception escapes
+    token = _MAIN_DEPTH.set(_MAIN_DEPTH.get() + 1)
+    try:
+        rc = _run_command(args, argv)
+        return rc
+    except Exception as e:
+        # anything the exit-code contract does not map is a crash: freeze
+        # a black box before unwinding (the report records exit 1)
+        FLIGHT.dump("unhandled-exception", exc=e)
+        raise
     finally:
         _MAIN_DEPTH.reset(token)
+        if hb is not None:
+            hb.stop()
+        if tracer is not None:
+            from .observe.trace import stop_trace, write_trace
+
+            stop_trace()
+            try:
+                write_trace(trace_path, tracer)
+                log.info("trace: %d spans -> %s (open in "
+                         "https://ui.perfetto.dev)",
+                         len(tracer.snapshot()), trace_path)
+            except OSError as e:
+                log.error("failed to write trace %s: %s", trace_path, e)
+        if report_path:
+            from .observe.report import emit, fold_device_stats
+
+            fold_device_stats()
+            GOVERNOR.fold_metrics()
+            report = emit(report_path, args.command, argv, t0_unix,
+                          time.monotonic() - t0, rc, trace_path)
+            if report is not None:
+                log.info("run report -> %s", report_path)

@@ -327,6 +327,9 @@ def _run_extract_fast(inputs, output, structures, opts, offset, header,
                              -1 if seg.length is None else seg.length))
     rg = opts.read_group_id.encode()
 
+    from ..utils.progress import ProgressTracker
+
+    progress = ProgressTracker("extract read sets")
     n_sets = 0
     readers = [FastqBatchReader(p) for p in inputs]
     try:
@@ -385,9 +388,11 @@ def _run_extract_fast(inputs, output, structures, opts, offset, header,
                     raise ExtractError(str(e))  # native-only failure
                 writer.write_serialized(blob)
                 n_sets += take
+                progress.add(take)
     finally:
         for r in readers:
             r.close()
+    progress.finish()
     # each read set emits exactly one record per template segment
     n_templates = sum(1 for s in segments if s[1] == 0)
     n_records = n_sets * n_templates

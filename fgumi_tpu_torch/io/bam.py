@@ -6,14 +6,18 @@ refID/pos/l_read_name/mapq/bin/n_cigar_op/flag/l_seq/next_refID/next_pos/tlen th
 name, cigar, packed seq, qual, aux TLV) — decoding only what each consumer touches.
 """
 
+import contextvars
+import logging
 import os
 import struct
+import time
+import zlib
 from dataclasses import dataclass
 
 import numpy as np
 
 from .bgzf import BgzfReader, BgzfWriter
-from .errors import InputFormatError
+from .errors import InputFormatError, OutputIntegrityError
 
 BAM_MAGIC = b"BAM\x01"
 # SAM spec reg2bin(-1, 0) — the unmapped record bin (builder.rs:1-3).
@@ -401,20 +405,208 @@ class BamReader:
 DEFAULT_COMPRESSION_LEVEL = 1
 
 
+_audit_output_var = contextvars.ContextVar("fgumi_tpu_torch_audit_output",
+                                           default=False)
+
+
+def set_audit_output(enabled: bool):
+    """Arm (for this invocation's context) the ``--audit-output``
+    pre-commit integrity pass of BAM outputs."""
+    _audit_output_var.set(bool(enabled))
+
+
+def audit_output_enabled() -> bool:
+    return _audit_output_var.get() or \
+        os.environ.get("FGUMI_TPU_AUDIT_OUTPUT", "").strip().lower() \
+        in ("1", "true", "on", "all")
+
+
+class _OutputTally:
+    """The writer's own accounting for the ``--audit-output`` re-walk: the
+    record count and a running CRC32 over the record stream's bytes
+    (block_size prefixes and payloads, in write order) as they were handed
+    to the writer. Any loss, duplication, reordering or flipped bit between
+    the writer's buffer and the page cache changes the digest; its order
+    sensitivity is the sort-order check."""
+
+    __slots__ = ("records", "content_crc", "header_crc")
+
+    def __init__(self):
+        self.records = 0
+        self.content_crc = 0
+        self.header_crc = 0  # CRC32 of the encoded BAM header
+
+    def add_record(self, framed):
+        """One record with its 4-byte block_size prefix."""
+        self.records += 1
+        self.content_crc = zlib.crc32(framed, self.content_crc)
+
+    def add_serialized(self, blob):
+        """A run of block_size-prefixed records."""
+        view = memoryview(blob)
+        off = 0
+        n = len(view)
+        while off + 4 <= n:
+            size = int.from_bytes(view[off:off + 4], "little")
+            self.records += 1
+            off += 4 + size
+        if off != n:
+            # the writer itself was handed a torn blob: a caller bug, not
+            # disk corruption; fail now, not at the re-walk
+            raise OutputIntegrityError(
+                "serialized record blob is torn (partial block_size "
+                "prefix)")
+        self.content_crc = zlib.crc32(view, self.content_crc)
+
+    def add_indexed(self, blob, starts):
+        """A prefix-framed blob whose record boundaries the caller already
+        delimited (``starts``: cumulative offsets, one past the record
+        count); the re-walk catches any disagreement with the framing."""
+        self.records += len(starts) - 1
+        self.content_crc = zlib.crc32(memoryview(blob), self.content_crc)
+
+
+class _BamStreamAudit:
+    """Incremental BAM structure walker over decompressed member payloads
+    (the ``--audit-output`` record-layer pass): parses the magic, header
+    and references, then counts records and CRCs them as
+    :class:`_OutputTally` does; optionally checks coordinate order."""
+
+    def __init__(self, path: str, expect_coordinate: bool = False):
+        self._path = path
+        self._buf = bytearray()
+        self._state = "magic"
+        self._text_len = 0
+        self._refs_left = None
+        self.records = 0
+        self.content_crc = 0
+        self.header_crc = 0
+        self._expect_coord = expect_coordinate
+        self._last_key = None
+
+    def _fail(self, message):
+        raise OutputIntegrityError(message, path=self._path)
+
+    def _eat_header(self, n: int):
+        """Consume n header bytes into ``header_crc`` (a flipped bit in
+        @HD/@SQ/@PG is as published as one in a read)."""
+        self.header_crc = zlib.crc32(memoryview(self._buf)[:n],
+                                     self.header_crc)
+        del self._buf[:n]
+
+    def feed(self, data):
+        self._buf += data
+        buf = self._buf
+        while True:
+            if self._state == "magic":
+                if len(buf) < 8:
+                    return
+                if bytes(buf[:4]) != BAM_MAGIC:
+                    self._fail("decompressed stream does not start with "
+                               "the BAM magic")
+                self._text_len = int.from_bytes(buf[4:8], "little")
+                self._eat_header(8)
+                self._state = "text"
+            elif self._state == "text":
+                if len(buf) < self._text_len + 4:
+                    return
+                self._refs_left = int.from_bytes(
+                    buf[self._text_len:self._text_len + 4], "little")
+                self._eat_header(self._text_len + 4)
+                self._state = "refs"
+            elif self._state == "refs":
+                if self._refs_left == 0:
+                    self._state = "records"
+                    continue
+                if len(buf) < 4:
+                    return
+                l_name = int.from_bytes(buf[:4], "little")
+                if len(buf) < 8 + l_name:
+                    return
+                self._eat_header(8 + l_name)
+                self._refs_left -= 1
+            else:  # records
+                if len(buf) < 4:
+                    return
+                size = int.from_bytes(buf[:4], "little")
+                if len(buf) < 4 + size:
+                    return
+                if size < 32:
+                    self._fail(f"record #{self.records} shorter than the "
+                               "fixed BAM record header")
+                key = bytes(buf[4:12])
+                self.records += 1
+                self.content_crc = zlib.crc32(memoryview(buf)[:4 + size],
+                                              self.content_crc)
+                if self._expect_coord:
+                    # the sorter's key: refID unsigned (unmapped last),
+                    # pos + 1 (a mapped record at pos -1 sorts first)
+                    k = (int.from_bytes(key[:4], "little"),
+                         int.from_bytes(key[4:8], "little",
+                                        signed=True) + 1)
+                    if self._last_key is not None and k < self._last_key:
+                        self._fail(
+                            f"record #{self.records} out of coordinate "
+                            "order in an SO:coordinate file")
+                    self._last_key = k
+                del buf[:4 + size]
+
+    def finish(self):
+        if self._state != "records" or self._buf:
+            self._fail("decompressed stream ends mid-structure "
+                       f"(state={self._state}, {len(self._buf)} residual "
+                       "bytes)")
+
+
 class BamWriter:
-    """Sequential BAM writer over BGZF. Leaving the ``with`` block on an
-    exception removes a partially written output file."""
+    """Sequential BAM writer over BGZF, committed atomically
+    (``utils/atomic.py``): the file appears under its name only on a clean
+    close, and leaving the ``with`` block on an exception removes the
+    partial output.
+
+    With ``--audit-output`` (and the atomic commit on) the writer tallies
+    every record it is handed and, at close, re-walks the finished
+    temporary file (each member's CRC32/ISIZE, the BAM structure, the
+    record count and the record digest against its tallies) before the
+    rename publishes it; a mismatch raises :class:`OutputIntegrityError`
+    (exit 5) and nothing is published."""
 
     def __init__(self, path_or_obj, header: BamHeader,
                  level: int = DEFAULT_COMPRESSION_LEVEL):
         owns = isinstance(path_or_obj, str)
-        self._path = path_or_obj if owns else None
-        fileobj = open(path_or_obj, "wb") if owns else path_or_obj
+        self._audit = None
+        self._audit_coord = False
+        if owns:
+            from ..utils.atomic import open_output
+
+            fileobj = open_output(path_or_obj)
+            if audit_output_enabled():
+                if hasattr(fileobj, "pre_commit_check"):
+                    self._audit = _OutputTally()
+                    self._audit_coord = "SO:coordinate" in header.text
+                    fileobj.pre_commit_check = self._run_output_audit
+                else:
+                    logging.getLogger("fgumi_tpu_torch").debug(
+                        "--audit-output: atomic commit disabled for %s; "
+                        "no pre-rename window to audit in, skipping",
+                        path_or_obj)
+        else:
+            fileobj = path_or_obj
         self._w = BgzfWriter(fileobj, level=level, owns_fileobj=owns)
-        self._w.write(header.encode())
+        try:
+            enc = header.encode()
+            if self._audit is not None:
+                self._audit.header_crc = zlib.crc32(enc)
+            self._w.write(enc)
+        except BaseException:
+            self.discard()
+            raise
 
     def write_record_bytes(self, data: bytes):
-        self._w.write(struct.pack("<I", len(data)) + data)
+        framed = struct.pack("<I", len(data)) + data
+        if self._audit is not None:
+            self._audit.add_record(framed)
+        self._w.write(framed)
 
     def write_record(self, rec: RawRecord):
         self.write_record_bytes(rec.data)
@@ -422,13 +614,50 @@ class BamWriter:
     def write_serialized(self, blob):
         """Append a run of already block_size-prefixed records."""
         if len(blob):
+            if self._audit is not None:
+                self._audit.add_serialized(blob)
             self._w.write(blob)
 
     def write_indexed(self, blob, starts):
         """Append a run of block_size-prefixed records and return the BGZF
         virtual offset of each position in ``starts`` (offsets into
         ``blob``; :meth:`BgzfWriter.write_indexed`)."""
+        if self._audit is not None:
+            self._audit.add_indexed(blob, starts)
         return self._w.write_indexed(blob, starts)
+
+    def _run_output_audit(self, tmp_path: str):
+        """The pre-commit hook: verify the finished temporary file end to
+        end; an :class:`OutputIntegrityError` aborts the rename."""
+        from ..observe.metrics import METRICS
+        from .bgzf import verify_members
+
+        t0 = time.monotonic()
+        walker = _BamStreamAudit(tmp_path,
+                                 expect_coordinate=self._audit_coord)
+        stats = verify_members(tmp_path, sink=walker.feed)
+        walker.finish()
+        if not stats["eof_sentinel"]:
+            raise OutputIntegrityError("missing BGZF EOF sentinel",
+                                       path=tmp_path)
+        if walker.header_crc != self._audit.header_crc:
+            raise OutputIntegrityError(
+                "BAM header digest mismatch: the header block on disk is "
+                "not the header the writer encoded", path=tmp_path)
+        if walker.records != self._audit.records:
+            raise OutputIntegrityError(
+                f"record count mismatch: file holds {walker.records}, "
+                f"writer tallied {self._audit.records}", path=tmp_path)
+        if walker.content_crc != self._audit.content_crc:
+            raise OutputIntegrityError(
+                "record-stream digest mismatch: the record bytes on disk "
+                "are not (in order) the bytes the writer was handed",
+                path=tmp_path)
+        dt = time.monotonic() - t0
+        METRICS.observe("io.output_audit_s", dt)
+        logging.getLogger("fgumi_tpu_torch").info(
+            "output audit: %d BGZF members / %d records verified clean in "
+            "%.2fs", stats["members"], walker.records, dt)
 
     def tell_virtual(self) -> int:
         """BGZF virtual offset of the next record."""
@@ -438,10 +667,11 @@ class BamWriter:
         self._w.close()
 
     def discard(self):
-        """Abandon the output (error path): the partial file is removed."""
+        """Abandon the output (error path): the temporary file is removed
+        and nothing is published. With the atomic commit off the file is
+        only closed, as the reference's is (it may be a FIFO or another
+        special file)."""
         self._w.discard()
-        if self._path is not None and os.path.exists(self._path):
-            os.remove(self._path)
 
     def __enter__(self):
         return self

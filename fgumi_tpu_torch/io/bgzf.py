@@ -18,19 +18,34 @@ its own, so both directions spread a run of blocks over threads: Python's
   ``_fill_native``). Plain gzip (one large member, or any member without
   the BC subfield) streams through ``zlib.decompressobj``, as the
   reference auto-detects.
+
+Telemetry: a write's compression is a ``bgzf.compress`` span on the
+writing thread and an inflated run a ``bgzf.decompress`` span on the
+reading thread (``io.bgzf.compress_s`` / ``decompress_s`` histograms);
+with tracing on, each group of blocks a thread compresses or inflates is a
+``bgzf.compress.blocks`` / ``bgzf.decompress.blocks`` span on that thread,
+the pool's included (its tasks run in the submitting thread's context).
+The ``writer.compress`` fault point fires on the bytes handed to
+:meth:`BgzfWriter.write` (``corrupt-bytes`` corrupts what is written) and
+``reader.decompress`` on each raw chunk read.
 """
 
+import contextvars
 import io
 import os
 import struct
 import threading
+import time
 import zlib
 from collections import deque
 from concurrent import futures
 
 import numpy as np
 
-from .errors import InputFormatError
+from ..observe import trace as _trace
+from ..observe.metrics import METRICS
+from ..utils import faults
+from .errors import InputFormatError, OutputIntegrityError
 
 # Maximum uncompressed payload per BGZF block.
 MAX_BLOCK_DATA = 0xFF00
@@ -87,7 +102,10 @@ def _map_groups(fn, items: list, threads: int) -> list:
     cuts = [n * i // k for i in range(k + 1)]
     groups = [items[cuts[i]:cuts[i + 1]] for i in range(k)]
     ex = _pool(threads)
-    futs = [ex.submit(fn, g) for g in groups[1:]]
+    # each task runs in the caller's context: its spans and counters land
+    # in the caller's command, whichever command's pool thread runs it
+    futs = [ex.submit(contextvars.copy_context().run, fn, g)
+            for g in groups[1:]]
     try:
         first = fn(groups[0])
     finally:
@@ -130,19 +148,23 @@ def compress_block(data, level: int = 1) -> bytes:
     )
 
 
-def compress_many(data, level: int = 1, threads: int = None):
+def compress_many(data, level: int = 1, threads: int = None,
+                  trace: bool = False):
     """Compress ``data`` into consecutive BGZF blocks of MAX_BLOCK_DATA
     input bytes (the last one may be shorter), across ``threads`` threads
     (default :func:`compress_threads`). Returns the blocks' bytes and the
     (n_blocks + 1,) int64 table of each block's offset in them, as the
-    reference's ``fgumi_bgzf_compress_many`` does."""
+    reference's ``fgumi_bgzf_compress_many`` does. ``trace``: each group of
+    blocks is a span on the thread that compresses it."""
     mv = memoryview(data)
     chunks = [mv[i:i + MAX_BLOCK_DATA]
               for i in range(0, len(mv), MAX_BLOCK_DATA)]
     threads = compress_threads() if threads is None else max(int(threads), 1)
 
     def run(group):
-        return [compress_block(c, level) for c in group]
+        with _trace.span("bgzf.compress.blocks", blocks=len(group)) \
+                if trace else _trace.NULL_SPAN:
+            return [compress_block(c, level) for c in group]
 
     blocks = [b for part in _map_groups(run, chunks, threads) for b in part]
     block_off = np.zeros(len(blocks) + 1, dtype=np.int64)
@@ -175,6 +197,11 @@ class BgzfWriter(io.RawIOBase):
         self._owns = owns_fileobj
         self._coffset = 0  # compressed bytes written so far
         self._broken = False
+        # hoisted: write() may run once per record, and a fire() costs a
+        # lock and an environment read
+        self._fault_armed = faults.armed("writer.compress")
+        self._trace_on = _trace.tracing_enabled()
+        self._counted = False
 
     def _emit_full(self) -> np.ndarray:
         """Compress and write every complete buffered block; returns their
@@ -182,14 +209,22 @@ class BgzfWriter(io.RawIOBase):
         reads it, so no view pins a buffer that later resizes."""
         chunk_len = len(self._buf) // MAX_BLOCK_DATA * MAX_BLOCK_DATA
         full, self._buf = self._buf, self._buf[chunk_len:]
-        blob, block_off = compress_many(memoryview(full)[:chunk_len],
-                                        self._level, self._threads)
+        t0 = time.monotonic()
+        with _trace.span("bgzf.compress",
+                         blocks=chunk_len // MAX_BLOCK_DATA) \
+                if self._trace_on else _trace.NULL_SPAN:
+            blob, block_off = compress_many(memoryview(full)[:chunk_len],
+                                            self._level, self._threads,
+                                            trace=self._trace_on)
+        METRICS.observe("io.bgzf.compress_s", time.monotonic() - t0)
         self._f.write(blob)
         self._coffset += len(blob)
         return block_off
 
     def write(self, data) -> int:
         try:
+            if self._fault_armed:
+                data = faults.fire("writer.compress", data)
             # memoryview: a numpy chunk appends through the buffer protocol
             # (a plain += would dispatch to ndarray broadcasting)
             mv = memoryview(data)
@@ -237,8 +272,14 @@ class BgzfWriter(io.RawIOBase):
 
     def flush(self):
         try:
+            # fire only with data to flush: IOBase.close calls flush()
+            # again, and must not use up a counted fault's budget
+            if self._fault_armed and self._buf:
+                faults.fire("writer.compress")
             if self._buf:
-                block = compress_block(self._buf, self._level)
+                with _trace.span("bgzf.compress", blocks=1) \
+                        if self._trace_on else _trace.NULL_SPAN:
+                    block = compress_block(self._buf, self._level)
                 self._f.write(block)
                 self._coffset += len(block)
                 self._buf.clear()
@@ -262,6 +303,9 @@ class BgzfWriter(io.RawIOBase):
             _reraise_disk_full(e, self._f)
             raise
         self._coffset += len(BGZF_EOF)
+        if not self._counted:
+            self._counted = True
+            METRICS.inc("io.bytes_written", self._coffset)
         if self._owns:
             self._f.close()
         super().close()
@@ -387,6 +431,8 @@ class BgzfReader:
         self._blocks = None
         self._raw = b""  # undecoded raw bytes of the block route
         self._pieces = deque()  # inflated bytes not handed out yet
+        self._trace_on = _trace.tracing_enabled()
+        self._counted = False
 
     def _input_error(self, message: str, offset: int = None):
         return InputFormatError(message, path=self.name,
@@ -397,6 +443,7 @@ class BgzfReader:
         raw = self._f.read(self._chunk)
         if raw:
             self._in_off += len(raw)
+            raw = faults.fire("reader.decompress", raw)
         else:
             self._eof = True
         return raw
@@ -463,16 +510,23 @@ class BgzfReader:
         threads = compress_threads() if self._threads is None \
             else max(int(self._threads), 1)
         mv = memoryview(raw)
+        trace = self._trace_on
 
         def run(group):
             if not group:
                 return -1
-            bad = _inflate_into(mv, blocks[group[0]:group[-1] + 1], out,
-                                int(starts[group[0]]))
+            with _trace.span("bgzf.decompress.blocks", blocks=len(group)) \
+                    if trace else _trace.NULL_SPAN:
+                bad = _inflate_into(mv, blocks[group[0]:group[-1] + 1], out,
+                                    int(starts[group[0]]))
             return -1 if bad < 0 else group[0] + bad
 
-        failed = [i for i in _map_groups(run, list(range(len(blocks))),
-                                         threads) if i >= 0]
+        t0 = time.monotonic()
+        with _trace.span("bgzf.decompress", blocks=len(blocks)) \
+                if trace else _trace.NULL_SPAN:
+            failed = [i for i in _map_groups(run, list(range(len(blocks))),
+                                             threads) if i >= 0]
+        METRICS.observe("io.bgzf.decompress_s", time.monotonic() - t0)
         good = min(failed) if failed else len(blocks)
         if good == 0:
             raise self._input_error(
@@ -552,5 +606,81 @@ class BgzfReader:
         return np.frombuffer(data, dtype=np.uint8)
 
     def close(self):
+        if not self._counted:
+            self._counted = True
+            if self._in_off:
+                METRICS.inc("io.bytes_read", self._in_off)
         if self._owns:
             self._f.close()
+
+
+def verify_members(path: str, sink=None) -> dict:
+    """Re-walk a written BGZF file member by member (the ``--audit-output``
+    compressed-layer pass): parse each header and its BC subfield, inflate
+    the payload with a fresh decompressor, and hold the member's CRC32 and
+    ISIZE to the freshly decoded bytes, so a bit flipped anywhere between
+    the writer's buffers and the page cache fails loudly. ``sink(bytes)``,
+    when given, receives each member's payload in order (the BAM walk rides
+    it). Returns ``{"members", "data_bytes", "eof_sentinel"}``; raises
+    :class:`OutputIntegrityError` naming the member's offset."""
+    members = 0
+    data_bytes = 0
+    last_empty = False
+    with open(path, "rb") as f:
+        offset = 0
+        while True:
+            head = f.read(12)
+            if not head:
+                break
+            if len(head) < 12 or head[:4] != _MAGIC:
+                raise OutputIntegrityError(
+                    "not a BGZF member header", path=path, offset=offset)
+            xlen = int.from_bytes(head[10:12], "little")
+            extra = f.read(xlen)
+            if len(extra) < xlen:
+                raise OutputIntegrityError(
+                    "truncated member header", path=path, offset=offset)
+            bsize = _bc_bsize(extra)
+            if bsize < 0:
+                raise OutputIntegrityError(
+                    "member has no BC subfield", path=path, offset=offset)
+            payload_len = bsize + 1 - 12 - xlen - 8
+            if payload_len < 0:
+                raise OutputIntegrityError(
+                    f"member BSIZE {bsize + 1} smaller than its own "
+                    "header", path=path, offset=offset)
+            payload = f.read(payload_len)
+            trailer = f.read(8)
+            if len(payload) < payload_len or len(trailer) < 8:
+                raise OutputIntegrityError(
+                    "truncated member (file ends mid-block)", path=path,
+                    offset=offset)
+            z = zlib.decompressobj(wbits=-15)
+            try:
+                decoded = z.decompress(payload) + z.flush()
+            except zlib.error as e:
+                raise OutputIntegrityError(
+                    f"member payload does not inflate: {e}", path=path,
+                    offset=offset) from e
+            if z.unconsumed_tail or not z.eof:
+                raise OutputIntegrityError(
+                    "member deflate stream did not terminate cleanly",
+                    path=path, offset=offset)
+            crc, isize = _TRAILER.unpack(trailer)
+            if zlib.crc32(decoded) != crc:
+                raise OutputIntegrityError(
+                    f"member CRC32 mismatch (stored {crc:#010x}, "
+                    f"computed {zlib.crc32(decoded):#010x})", path=path,
+                    offset=offset)
+            if (len(decoded) & 0xFFFFFFFF) != isize:
+                raise OutputIntegrityError(
+                    f"member ISIZE mismatch (stored {isize}, computed "
+                    f"{len(decoded)})", path=path, offset=offset)
+            members += 1
+            data_bytes += len(decoded)
+            last_empty = len(decoded) == 0
+            if sink is not None and decoded:
+                sink(decoded)
+            offset += bsize + 1
+    return {"members": members, "data_bytes": data_bytes,
+            "eof_sentinel": last_empty}

@@ -14,6 +14,9 @@ import os
 import queue
 import threading
 
+from ..observe import trace as _trace
+from ..observe.scope import spawn_thread
+
 log = logging.getLogger("fgumi_tpu_torch")
 
 _EOF = object()
@@ -53,8 +56,11 @@ class PrefetchFile:
         self._exc = None
         self._stop = threading.Event()
         advise_sequential(fileobj)
-        self._t = threading.Thread(target=self._loop, args=(chunk,),
-                                   name="fgumi-prefetch", daemon=True)
+        # the read-ahead thread records its io.prefetch.read spans into the
+        # opening command's telemetry scope
+        self._trace_on = _trace.tracing_enabled()
+        self._t = spawn_thread(self._loop, args=(chunk,),
+                               name="fgumi-prefetch")
         self._t.start()
 
     def _put(self, item) -> bool:
@@ -70,7 +76,9 @@ class PrefetchFile:
     def _loop(self, chunk):
         try:
             while not self._stop.is_set():
-                data = self._f.read(chunk)
+                with _trace.span("io.prefetch.read") \
+                        if self._trace_on else _trace.NULL_SPAN:
+                    data = self._f.read(chunk)
                 if not self._put(data if data else _EOF) or not data:
                     return
         except BaseException as e:  # noqa: BLE001 - raised by read()

@@ -8,6 +8,7 @@ wrapper's frame until the foreign call returns.
 
 import numpy as np
 
+from ..utils import faults
 from . import get_lib
 
 
@@ -19,7 +20,9 @@ def _addr(arr: np.ndarray) -> int:
 
 def find_boundaries(buf: np.ndarray, max_records: int):
     """(offsets int64[n], scanned): record starts in decompressed BAM bytes
-    and the offset just past the last complete record."""
+    and the offset just past the last complete record. The entry of every
+    record batch, and the ``native.batch`` fault point."""
+    faults.fire("native.batch")
     lib = get_lib()
     offsets = np.empty(max_records, dtype=np.int64)
     scanned = np.zeros(1, dtype=np.int64)

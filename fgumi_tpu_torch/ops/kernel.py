@@ -65,6 +65,15 @@ keeps the thresholded bases/quals and the lane observation counts on the
 device in a :class:`ResidentHandles` for the strand combine
 (:func:`duplex_combine_device`, K5); the CODEC combine runs through
 :func:`codec_combine_device` (K6).
+
+Telemetry: each launch (K1, K1-f, K1-r, K1-p2, K5, K6) is a
+``device.dispatch`` span (``what=`` the kernel, ``attempt=0``) around its
+upload and enqueue, and each wait for a result a ``device.fetch`` span. A
+CUDA launch returns before the kernel runs, so the card's time shows up
+inside ``device.fetch``. Each resolved dispatch feeds the
+``device.dispatch.{fetch_s,fetch_bytes,wall_s}`` histograms and the flight
+recorder's ring. :data:`DEVICE_STATS` resolves the active command's
+telemetry scope (``observe/scope.py``).
 """
 
 import threading
@@ -74,6 +83,7 @@ import numpy as np
 import torch
 
 from ..constants import MIN_PHRED, N_CODE
+from ..observe.trace import NULL_SPAN, span
 from . import combine as C
 from . import cuda_kernel
 from . import wire as W
@@ -119,8 +129,9 @@ class DeviceStats:
     DeviceStats, trimmed): consensus dispatches, host seconds blocked in
     their fetches, bytes uploaded and fetched, dispatches in flight (and
     the most at once), and a timeline of the first
-    :attr:`TIMELINE_CAP` dispatches. Thread-safe; one module-wide
-    instance (:data:`DEVICE_STATS`) aggregates every kernel object."""
+    :attr:`TIMELINE_CAP` dispatches. Thread-safe; one instance a
+    command (its telemetry scope's, which :data:`DEVICE_STATS` resolves)
+    aggregates every kernel object."""
 
     TIMELINE_CAP = 4096
 
@@ -129,7 +140,8 @@ class DeviceStats:
         self.reset()
 
     def reset(self):
-        """Zero the counters (the CLI does so as a command starts)."""
+        """Zero the counters (the global view of a command that never
+        touched the device)."""
         with self._lock:
             self.dispatches = 0
             self.fetch_wait_s = 0.0
@@ -189,6 +201,19 @@ class DeviceStats:
         with self._lock:
             return [dict(t) for t in self.timeline]
 
+    def load_from(self, other: "DeviceStats"):
+        """Adopt another instance's counters wholesale (a finished
+        command's scope becomes the process-global view)."""
+        with other._lock:
+            state = {k: getattr(other, k) for k in (
+                "dispatches", "fetch_wait_s", "bytes_uploaded",
+                "bytes_fetched", "in_flight", "in_flight_peak", "_t0")}
+            state["device_types"] = set(other.device_types)
+            state["timeline"] = [dict(t) for t in other.timeline]
+        with self._lock:
+            for k, v in state.items():
+                setattr(self, k, v)
+
     def format_summary(self, wall_s: float = None) -> str:
         s = self.snapshot()
         parts = [f"device ({','.join(s['devices'])}): {s['dispatches']} "
@@ -202,8 +227,54 @@ class DeviceStats:
         return "; ".join(parts)
 
 
-#: the process's device accounting (``--stats``)
-DEVICE_STATS = DeviceStats()
+#: the fallback instance when no telemetry scope is active (library use,
+#: tests); a finished command's counters are published onto it
+_GLOBAL_DEVICE_STATS = DeviceStats()
+
+
+class _DeviceStatsProxy:
+    """Scope-resolving stand-in for the module-wide DeviceStats: every
+    attribute access resolves the active telemetry scope first (one
+    DeviceStats per top-level command) and falls back to the process-global
+    instance, so two commands run at once never share counters."""
+
+    __slots__ = ()
+
+    @staticmethod
+    def _target() -> DeviceStats:
+        from ..observe.scope import current_scope
+
+        scope = current_scope()
+        if scope is not None:
+            return scope.device_stats(DeviceStats)
+        return _GLOBAL_DEVICE_STATS
+
+    def __getattr__(self, name):
+        return getattr(self._target(), name)
+
+
+#: the active command's device accounting (``--stats``, the run report)
+DEVICE_STATS = _DeviceStatsProxy()
+
+
+def _observe_dispatch(wall_s: float, fetch_s: float, up: int, down: int):
+    """Fold one resolved dispatch into the latency histograms and the
+    flight recorder's ring (once per dispatch, never per record)."""
+    from ..observe.flight import FLIGHT
+    from ..observe.metrics import METRICS
+
+    METRICS.observe("device.dispatch.fetch_s", fetch_s)
+    METRICS.observe("device.dispatch.fetch_bytes", down)
+    METRICS.observe("device.dispatch.wall_s", wall_s)
+    FLIGHT.note("device.dispatch", wall_s=round(wall_s, 4), up_bytes=up,
+                down_bytes=down)
+
+
+def _dispatch_span(what: str, work: int):
+    """The ``device.dispatch`` span of one launch of ``what``; the shared
+    no-op when ``work`` is 0 (the wrapper then launches nothing)."""
+    return span("device.dispatch", what=what, attempt=0) if work \
+        else NULL_SPAN
 
 
 class Dispatch:
@@ -211,12 +282,13 @@ class Dispatch:
     host clock when its upload began, and its :data:`DEVICE_STATS`
     timeline slot."""
 
-    __slots__ = ("out", "t0", "slot")
+    __slots__ = ("out", "t0", "slot", "up")
 
-    def __init__(self, out, t0: float, slot: int):
+    def __init__(self, out, t0: float, slot: int, up: int):
         self.out = out
         self.t0 = t0
         self.slot = slot
+        self.up = up
 
 
 class _Staging:
@@ -360,20 +432,23 @@ class ConsensusKernel:
         """The handle of a dispatch whose upload began at ``t0`` (the host
         tensors ``host`` went up)."""
         up = sum(t.numel() * t.element_size() for t in host)
-        return Dispatch(out, t0, DEVICE_STATS.begin(self.device, up))
+        return Dispatch(out, t0, DEVICE_STATS.begin(self.device, up), up)
 
     def _fetch(self, handle: Dispatch, tensors):
         """Fetch ``tensors`` of ``handle``'s dispatch to host numpy arrays
         and close its accounting: its span (upload to fetched) goes into
         ``device_s``, its fetch wait into :data:`DEVICE_STATS`."""
         t_fetch = time.monotonic()
-        host = [t.cpu().numpy() for t in tensors]
+        with span("device.fetch") as sp:
+            host = [t.cpu().numpy() for t in tensors]
+            down = sum(a.nbytes for a in host)
+            sp.set(bytes=down)
         now = time.monotonic()
         with self._lock:
             self.device_s += now - handle.t0
             self.batches += 1
-        DEVICE_STATS.end(handle.slot, sum(a.nbytes for a in host),
-                         now - t_fetch)
+        DEVICE_STATS.end(handle.slot, down, now - t_fetch)
+        _observe_dispatch(now - handle.t0, now - t_fetch, handle.up, down)
         return host
 
     def _device_tables(self):
@@ -410,22 +485,26 @@ class ConsensusKernel:
         w = W.build_wire(codes_t, quals_t, self._delta94)
         if w is not None:
             wire, dict64 = w
+            what = "K1" if resident_thresholds is None else "K1-r"
             t0 = time.monotonic()
-            args = (self._to_device(wire, "wire"),
-                    self._to_device(starts_t, "starts"),
-                    self._to_device(dict64, "dict"), self._pre)
-            if resident_thresholds is not None:
-                out = cuda_kernel.consensus_wire_resident(
-                    *args, *resident_thresholds)
-            else:
-                out = cuda_kernel.consensus_wire_full(*args)
+            # a batch of no families launches nothing: no span either
+            with _dispatch_span(what, J):
+                args = (self._to_device(wire, "wire"),
+                        self._to_device(starts_t, "starts"),
+                        self._to_device(dict64, "dict"), self._pre)
+                if resident_thresholds is not None:
+                    out = cuda_kernel.consensus_wire_resident(
+                        *args, *resident_thresholds)
+                else:
+                    out = cuda_kernel.consensus_wire_full(*args)
             return self._begin(t0, out, wire, starts_t, dict64)
         cp, qsent = W.pack_codes2(codes_t, quals_t)
         t0 = time.monotonic()
-        ct, et = self._device_tables()
-        out = cuda_kernel.consensus_wire_packed2(
-            self._to_device(cp, "wire"), self._to_device(qsent, "quals"),
-            self._to_device(starts_t, "starts"), ct, et, self._pre)
+        with _dispatch_span("K1-p2", J):
+            ct, et = self._device_tables()
+            out = cuda_kernel.consensus_wire_packed2(
+                self._to_device(cp, "wire"), self._to_device(qsent, "quals"),
+                self._to_device(starts_t, "starts"), ct, et, self._pre)
         return self._begin(t0, out, cp, qsent, starts_t)
 
     def _emin(self, table: np.ndarray) -> torch.Tensor:
@@ -465,12 +544,14 @@ class ConsensusKernel:
         starts_t = torch.from_numpy(np.asarray(starts, dtype=np.int32))
         lens_t = torch.from_numpy(np.ascontiguousarray(lens, dtype=np.int32))
         t0 = time.monotonic()
-        out = cuda_kernel.consensus_wire_filter(
-            self._to_device(wire, "wire"), self._to_device(starts_t, "starts"),
-            self._to_device(dict64, "dict"), self._pre, mr, mq,
-            self._to_device(lens_t, "lens"), fparams.min_reads,
-            self._emin(fparams.emin_tab), fparams.min_base_q,
-            fparams.per_base)
+        with _dispatch_span("K1-f", len(starts) - 1):
+            out = cuda_kernel.consensus_wire_filter(
+                self._to_device(wire, "wire"),
+                self._to_device(starts_t, "starts"),
+                self._to_device(dict64, "dict"), self._pre, mr, mq,
+                self._to_device(lens_t, "lens"), fparams.min_reads,
+                self._emin(fparams.emin_tab), fparams.min_base_q,
+                fparams.per_base)
         return True, self._begin(t0, out, wire, starts_t, dict64, lens_t)
 
     def resolve_segments_wire_filtered(self, ticket, codes2d: np.ndarray,
@@ -497,9 +578,12 @@ class ConsensusKernel:
         """Rows ``rows`` of every resident (J, ...) array, fetched to the
         host: the survivors-only gathers (plain tensor indexing)."""
         t0 = time.monotonic()
-        idx = torch.from_numpy(np.ascontiguousarray(rows, dtype=np.int64))
-        idx = idx.to(arrays[0].device)
-        out = [t[idx].cpu().numpy() for t in arrays]
+        with span("device.fetch", what="gather") as sp:
+            idx = torch.from_numpy(np.ascontiguousarray(rows,
+                                                        dtype=np.int64))
+            idx = idx.to(arrays[0].device)
+            out = [t[idx].cpu().numpy() for t in arrays]
+            sp.set(bytes=sum(a.nbytes for a in out))
         dt = time.monotonic() - t0
         with self._lock:
             self.device_s += dt
@@ -688,11 +772,13 @@ def duplex_combine_device(resident: ResidentHandles, a_idx, b_idx, lens):
     whose strands carry no oracle-patched position. A failed launch
     raises."""
     tb, tq, obs = resident.arrays
-    idx = torch.from_numpy(np.stack([
-        np.asarray(a, dtype=np.int32) for a in (a_idx, b_idx, lens)]))
-    idx = idx.to(tb.device)
-    out = C.duplex_combine(tb, tq, obs, idx[0], idx[1], idx[2])
-    return tuple(t.cpu().numpy() for t in out)
+    with _dispatch_span("K5", len(lens)):
+        idx = torch.from_numpy(np.stack([
+            np.asarray(a, dtype=np.int32) for a in (a_idx, b_idx, lens)]))
+        idx = idx.to(tb.device)
+        out = C.duplex_combine(tb, tq, obs, idx[0], idx[1], idx[2])
+    with span("device.fetch"):
+        return tuple(t.cpu().numpy() for t in out)
 
 
 def codec_combine_device(device, ba, bb, qa, qb, da, db, ea, eb):
@@ -714,19 +800,22 @@ def codec_combine_device(device, ba, bb, qa, qb, da, db, ea, eb):
     fetch is synchronous."""
     dev = torch.device(device)
     arrays = (ba, bb, qa, qb, da, db, ea, eb)
+    T = len(ba)
     if dev.type != "cuda":
         ops = [torch.from_numpy(np.ascontiguousarray(a, dtype=dt))
                for a, dt in zip(arrays, (np.uint8,) * 4 + (np.int32,) * 4)]
-        return tuple(t.numpy() for t in C.codec_combine(*ops))
-    T = len(ba)
-    staged = torch.empty(C.plane_bytes(T, C.CODEC_IN), dtype=torch.uint8,
-                         pin_memory=True)
-    for plane, a in zip(C.plane_views(staged, T, C.CODEC_IN), arrays):
-        plane.numpy()[:] = a
-    up = staged.to(dev, non_blocking=True)
-    out = torch.empty(C.plane_bytes(T, C.CODEC_OUT), dtype=torch.uint8,
-                      device=dev)
-    C.codec_combine(*C.plane_views(up, T, C.CODEC_IN), out=out)
-    host = torch.empty(out.numel(), dtype=torch.uint8, pin_memory=True)
-    host.copy_(out)
+        with _dispatch_span("K6", T):
+            return tuple(t.numpy() for t in C.codec_combine(*ops))
+    with _dispatch_span("K6", T):
+        staged = torch.empty(C.plane_bytes(T, C.CODEC_IN),
+                             dtype=torch.uint8, pin_memory=True)
+        for plane, a in zip(C.plane_views(staged, T, C.CODEC_IN), arrays):
+            plane.numpy()[:] = a
+        up = staged.to(dev, non_blocking=True)
+        out = torch.empty(C.plane_bytes(T, C.CODEC_OUT), dtype=torch.uint8,
+                          device=dev)
+        C.codec_combine(*C.plane_views(up, T, C.CODEC_IN), out=out)
+    with span("device.fetch"):
+        host = torch.empty(out.numel(), dtype=torch.uint8, pin_memory=True)
+        host.copy_(out)
     return tuple(v.numpy() for v in C.plane_views(host, T, C.CODEC_OUT))

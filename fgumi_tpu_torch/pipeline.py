@@ -14,6 +14,14 @@ stage that is the strictly serial path; with one, the default holds one
 output in flight, so a kernel dispatched for item N runs while item N+1 is
 read and prepared (``FGUMI_TPU_INLINE_FLIGHT=1`` restores the strictly
 serial order).
+
+Telemetry (``observe/``): with tracing on, each pull from the source is a
+``pipeline.read`` span and each item's process, resolve and sink a
+``pipeline.process`` / ``pipeline.resolve`` / ``pipeline.sink`` span, on
+whichever thread runs it; every exit path folds the :class:`StageTimes`
+into the metrics registry; a threaded run publishes its counters and queue
+depths to the heartbeat; every helper thread runs in the caller's telemetry
+scope; and the ``pipeline.process`` fault point fires once per item.
 """
 
 import logging
@@ -23,6 +31,7 @@ import threading
 import time
 from collections import deque
 
+from .observe.scope import spawn_thread
 from .utils.governor import GOVERNOR, DynamicBudget, StopSignal
 
 log = logging.getLogger("fgumi_tpu_torch")
@@ -100,10 +109,6 @@ class _Err:
 _DONE = object()
 
 
-def _spawn(target, name, args=()):
-    return threading.Thread(target=target, args=args, name=name, daemon=True)
-
-
 class _Watchdog:
     """Stall detector of the threaded modes (the reference's deadlock
     watchdog, deadlock.rs:1-60): a daemon thread samples the stage counters
@@ -126,7 +131,7 @@ class _Watchdog:
         self._stop = threading.Event()
         self._t = None
         if interval > 0:  # <= 0 disables the watchdog
-            self._t = _spawn(self._loop, "fgumi-watchdog")
+            self._t = spawn_thread(self._loop, name="fgumi-watchdog")
             self._t.start()
 
     def _loop(self):
@@ -185,6 +190,38 @@ def inline_flight() -> int:
         return 2
 
 
+def _traced_source(source_iter):
+    """Each pull from the source as a ``pipeline.read`` span (on whichever
+    thread drives the iterator)."""
+    from .observe.trace import span
+
+    it = iter(source_iter)
+    while True:
+        with span("pipeline.read"):
+            try:
+                item = next(it)
+            except StopIteration:
+                return
+        yield item
+
+
+def _traced_stage(name, fn, materialize=False):
+    """A stage callable in a named span. ``materialize`` lists a lazy
+    process output, so the span covers the work and not just the
+    generator's construction."""
+    from .observe.trace import span
+
+    if materialize:
+        def wrapped(item):
+            with span(name):
+                return list(fn(item))
+    else:
+        def wrapped(item):
+            with span(name):
+                return fn(item)
+    return wrapped
+
+
 def run_stages(source_iter, process_fn, sink_fn, threads: int = 0,
                queue_items: int = 4, stats: StageTimes = None,
                watchdog_interval: float = 120.0, resolve_fn=None,
@@ -217,16 +254,42 @@ def run_stages(source_iter, process_fn, sink_fn, threads: int = 0,
     """
     if stats is None:
         stats = StageTimes()
+    from .observe import trace as _trace
+    from .utils import faults
+
+    if _trace.tracing_enabled():
+        # wrapped only with tracing on: off, the hot path runs the
+        # caller's bare callables
+        source_iter = _traced_source(source_iter)
+        process_fn = _traced_stage("pipeline.process", process_fn,
+                                   materialize=True)
+        if resolve_fn is not None:
+            resolve_fn = _traced_stage("pipeline.resolve", resolve_fn)
+        sink_fn = _traced_stage("pipeline.sink", sink_fn)
+    if faults.armed("pipeline.process"):
+        inner_process = process_fn
+
+        def process_fn(item):
+            faults.fire("pipeline.process")
+            return inner_process(item)
     has_resolve = resolve_fn is not None
     if resolve_fn is None:
         resolve_fn = lambda out: out  # noqa: E731
-    if threads <= 1:
-        return _run_inline(source_iter, process_fn, sink_fn, stats,
-                           resolve_fn, inline_flight() if has_resolve else 1)
-    return _run_threaded(source_iter, process_fn, sink_fn, threads,
-                         queue_items, stats, watchdog_interval, resolve_fn,
-                         max_bytes, item_bytes, deadlock_recover,
-                         resolve_workers)
+    try:
+        if threads <= 1:
+            return _run_inline(source_iter, process_fn, sink_fn, stats,
+                               resolve_fn,
+                               inline_flight() if has_resolve else 1)
+        return _run_threaded(source_iter, process_fn, sink_fn, threads,
+                             queue_items, stats, watchdog_interval,
+                             resolve_fn, max_bytes, item_bytes,
+                             deadlock_recover, resolve_workers)
+    finally:
+        # every exit path, success or failure, so the run report can say
+        # where the time went
+        from .observe.metrics import record_stage_times
+
+        record_stage_times(stats)
 
 
 def _run_inline(source_iter, process_fn, sink_fn, stats, resolve_fn,
@@ -413,13 +476,23 @@ def _run_threaded(source_iter, process_fn, sink_fn, threads, queue_items,
             while q_out.get() is not _DONE:
                 pass
 
-    rt = _spawn(reader, "fgumi-reader")
-    wt = _spawn(writer_pooled if n_workers else writer_direct,
-                "fgumi-writer")
-    wts = [_spawn(worker, f"fgumi-worker-{i}", (i,))
+    # every thread runs in a copy of the caller's context: a command's
+    # telemetry scope follows its whole thread tree
+    rt = spawn_thread(reader, name="fgumi-reader")
+    wt = spawn_thread(writer_pooled if n_workers else writer_direct,
+                      name="fgumi-writer")
+    wts = [spawn_thread(worker, name=f"fgumi-worker-{i}", args=(i,))
            for i in range(n_workers)]
     watchdog = _Watchdog(counters, q_in, q_out, watchdog_interval,
                          recover=deadlock_recover, budget=budget)
+    # the watchdog's view, for the heartbeat, while the stages run
+    from .observe import heartbeat as _hb
+
+    hb_token = _hb.register_gauge(lambda: {
+        "read": counters[0], "processed": counters[1],
+        "written": counters[2],
+        "q_in": f"{q_in.qsize()}/{q_in.maxsize}",
+        "q_out": f"{q_out.qsize()}/{q_out.maxsize}"})
     rt.start()
     wt.start()
     for t in wts:
@@ -468,9 +541,18 @@ def _run_threaded(source_iter, process_fn, sink_fn, threads, queue_items,
             except queue.Empty:
                 pass
             rt.join(timeout=0.2)
+        _hb.unregister_gauge(hb_token)
         GOVERNOR.unregister_budget(gov_token)
         stats.peak_in_flight_bytes = budget.peak
         stats.input_budget = budget.snapshot()
     if writer_exc:
         raise writer_exc[0]
+    if budget.limit > 0:
+        # was the input queue budget-bound? (the run report's gauges)
+        from .observe.metrics import METRICS
+
+        p = f"governor.budget.{budget.name}"
+        METRICS.set(f"{p}.limit", budget.limit)
+        METRICS.max(f"{p}.peak", budget.peak)
+        METRICS.inc(f"{p}.wait_s", round(budget.wait_s, 6))
     return stats

@@ -36,6 +36,7 @@ from collections import deque
 
 import numpy as np
 
+from .observe.metrics import METRICS
 from .utils.governor import GOVERNOR, DynamicBudget
 
 log = logging.getLogger("fgumi_tpu_torch")
@@ -122,6 +123,13 @@ class ChainChannel:
         self.peak_bytes = 0
         self.put_wait_s = 0.0
         self.get_wait_s = 0.0
+        self._metrics_folded = False
+        # hoisted: a fire() costs a lock and an environment read per blob
+        from .observe import trace as _trace
+        from .utils import faults
+
+        self._fault_armed = faults.armed("chain.handoff")
+        self._trace_on = _trace.tracing_enabled()
 
     @property
     def max_bytes(self) -> int:
@@ -159,11 +167,26 @@ class ChainChannel:
         """Hand one wire-chunk blob to the consumer (blocks on the byte
         budget; ownership transfers — the producer must not reuse a
         mutable blob after putting it)."""
+        if self._fault_armed:
+            from .utils import faults
+
+            blob = faults.fire("chain.handoff", blob)
+            if blob is None:
+                return
         n = len(blob)
         if n == 0:
             # the consumer's assembler reads an empty chunk as end of
             # stream: never enqueue one
             return
+        if self._trace_on:
+            from .observe.trace import span
+
+            with span("chain.put", channel=self.name, bytes=n):
+                self._put(blob, n)
+        else:
+            self._put(blob, n)
+
+    def _put(self, blob, n: int) -> None:
         t0 = time.monotonic()
         with self._cv:
             # a hard watermark ends the producing stage cleanly (exit 4, the
@@ -185,8 +208,12 @@ class ChainChannel:
             self.n_blobs += 1
             self.total_bytes += n
             self.peak_bytes = max(self.peak_bytes, self._bytes)
-            self.put_wait_s += time.monotonic() - t0
+            wait = time.monotonic() - t0
+            self.put_wait_s += wait
             self._cv.notify_all()
+        # outside the channel lock: the registry's lock must not extend
+        # this condition's critical section
+        METRICS.observe("pipeline.chain.put_wait_s", wait)
 
     def close(self) -> None:
         """Producer EOF: the consumer drains remaining blobs, then sees end
@@ -209,6 +236,11 @@ class ChainChannel:
         self._ungovern()
 
     # ------------------------------------------------------------- consumer
+
+    @property
+    def has_header(self) -> bool:
+        """True once the producer published the header (never blocks)."""
+        return self._have_header
 
     @property
     def header(self):
@@ -234,13 +266,16 @@ class ChainChannel:
                 if self._blobs:
                     blob = self._blobs.popleft()
                     self._bytes -= len(blob)
-                    self.get_wait_s += time.monotonic() - t0
+                    wait = time.monotonic() - t0
+                    self.get_wait_s += wait
                     self._cv.notify_all()
-                    return blob
+                    break
                 if self._closed:
                     self.get_wait_s += time.monotonic() - t0
                     return None
                 self._cv.wait(0.1)
+        METRICS.observe("pipeline.chain.get_wait_s", wait)
+        return blob
 
     def cancel(self) -> None:
         """Consumer-side failure or early exit: every blocked or future
@@ -257,6 +292,24 @@ class ChainChannel:
         if self._abort_reason is not None:
             return self._abort_reason
         return f"chain channel {self.name}: consumer cancelled"
+
+    def fold_metrics(self) -> None:
+        """Fold the channel's counters into ``METRICS`` under
+        ``pipeline.chain.<name>.*`` (once; the fused pipeline calls it in its
+        ``finally``, so a failed run reports too)."""
+        if self._metrics_folded:
+            return
+        self._metrics_folded = True
+        p = f"pipeline.chain.{self.name}"
+        METRICS.inc(f"{p}.batches", self.n_blobs)
+        METRICS.inc(f"{p}.bytes", self.total_bytes)
+        METRICS.max(f"{p}.peak_bytes", self.peak_bytes)
+        METRICS.inc(f"{p}.put_wait_s", round(self.put_wait_s, 6))
+        METRICS.inc(f"{p}.get_wait_s", round(self.get_wait_s, 6))
+        METRICS.set(f"{p}.budget_limit", self.max_bytes)
+        if self._budget.grows or self._budget.shrinks:
+            METRICS.inc(f"{p}.budget_grows", self._budget.grows)
+            METRICS.inc(f"{p}.budget_shrinks", self._budget.shrinks)
 
     def stats(self) -> dict:
         """The channel's counters (blobs, bytes, peak, waits)."""

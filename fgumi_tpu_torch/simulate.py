@@ -484,7 +484,7 @@ def simulate_fastq_reads(r1_path: str, r2_path: str, truth_path: str = None,
     """
     import gzip
 
-    from .utils.atomic import open_output
+    from .utils.atomic import discard_output, open_output
 
     rng = np.random.default_rng(seed)
     whitelist = None
@@ -546,9 +546,9 @@ def simulate_fastq_reads(r1_path: str, r2_path: str, truth_path: str = None,
                     n_pairs += 1
     except BaseException:
         if truth_f:
-            truth_f.discard()  # never commit a partial truth table
+            discard_output(truth_f)  # never commit a partial truth table
         raise
     else:
         if truth_f:
-            truth_f.commit()
+            truth_f.close()
     return n_pairs

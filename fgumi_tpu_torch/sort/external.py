@@ -28,10 +28,17 @@ run either way.
 
 Spill runs are stored frames: they never reach the output and are read
 back once, and this build links no compression library.
+
+Telemetry: each spill is a ``sort.spill`` span (on the thread that writes
+it) with the ``sort.spill_s`` histogram and the ``sort.spill`` fault point
+(kind ``enospc`` proves the exit-4 contract); ``sort.merge_frame_s`` times
+each wire chunk the native merge hands back.
 """
 
+import contextvars
 import os
 import tempfile
+import time
 
 import numpy as np
 
@@ -165,13 +172,15 @@ class NativeExternalSorter:
             # soft pressure: move the pool out of memory early
             self._spill()
 
-    def ingest_batches(self, batches, batch_keys_fn):
+    def ingest_batches(self, batches, batch_keys_fn, on_batch=None):
         """Phase-1 ingest from any RecordBatch iterable: a file reader or a
         fused-chain channel (``pipeline_chain.ChannelBatchReader``), keyed
         and pooled as they arrive (with spill workers, spills overlap the
-        producer)."""
+        producer). ``on_batch(n)`` is called per batch (progress)."""
         for b in batches:
             self.add_record_batch(b, batch_keys_fn)
+            if on_batch is not None:
+                on_batch(b.n)
 
     # ---------------------------------------------------------------- phases
 
@@ -196,6 +205,24 @@ class NativeExternalSorter:
     def _build_run(self, path, keys_b, recs_b, spans):
         """Sort and write one frozen pool to ``path`` (on a spill worker or
         inline; touches no state of the sorter)."""
+        from ..observe.metrics import METRICS
+        from ..observe.trace import span
+        from ..utils import faults
+
+        n = len(spans[1])
+        METRICS.inc("sort.spills")
+        METRICS.inc("sort.spill_records", n)
+        t0 = time.monotonic()
+        with span("sort.spill", records=n):
+            try:
+                faults.fire("sort.spill")
+            except OSError as e:
+                reraise_enospc(e, "sort.spill", path=self._tmp_dir)
+                raise
+            self._write_run(path, keys_b, recs_b, spans)
+        METRICS.observe("sort.spill_s", time.monotonic() - t0)
+
+    def _write_run(self, path, keys_b, recs_b, spans):
         koff, klen, roff, rlen = spans
         keys = np.frombuffer(keys_b, dtype=np.uint8)
         recs = np.frombuffer(recs_b, dtype=np.uint8)
@@ -244,8 +271,10 @@ class NativeExternalSorter:
         # every worker busy: wait for the oldest spill first
         while len(self._futures) >= self._spill_workers:
             self._futures.pop(0).result()
+        # the worker records into the submitting command's telemetry scope
         self._futures.append(self._executor.submit(
-            self._build_run, path, keys_b, recs_b, spans))
+            contextvars.copy_context().run, self._build_run, path, keys_b,
+            recs_b, spans))
 
     def _drain_spills(self):
         """Finish every in-flight spill (the first error raises)."""
@@ -287,10 +316,14 @@ class NativeExternalSorter:
             out = np.empty(cap, dtype=np.uint8)
             lens = np.empty(max_recs, dtype=np.int32)
             n_out = ctypes.c_long(0)
+            from ..observe.metrics import METRICS
+
             while True:
+                t0 = time.monotonic()
                 n_bytes = self._lib.fgumi_merge_next(
                     h, out.ctypes.data, cap, lens.ctypes.data, max_recs,
                     ctypes.addressof(n_out))
+                METRICS.observe("sort.merge_frame_s", time.monotonic() - t0)
                 if n_bytes < 0:
                     raise OSError("corrupt spill run during merge")
                 if n_bytes == 0:

@@ -293,19 +293,25 @@ def _device_pairwise(mat_a: np.ndarray, mat_b: np.ndarray,
                      device) -> np.ndarray:
     """The device function: upload, K4 (or its plain version on ``cpu``),
     fetch of the whole (n, m) int16 matrix."""
+    from ..observe.trace import span as trace_span
+
     dev = torch.device(device)
     on_card = dev.type == "cuda"
     t0 = time.perf_counter()
-    a = _as_tensor(mat_a, dev)
-    b = a if mat_b is mat_a else _as_tensor(mat_b, dev)
-    if on_card:
-        torch.cuda.synchronize(dev)
-    t1 = time.perf_counter()
-    dist = umi_hamming(a, b)
-    if on_card:
-        torch.cuda.synchronize(dev)
+    # K4's upload and launch (this route synchronises, so the span also
+    # holds the kernel's run), then the fetch of the matrix
+    with trace_span("device.dispatch", what="K4", attempt=0):
+        a = _as_tensor(mat_a, dev)
+        b = a if mat_b is mat_a else _as_tensor(mat_b, dev)
+        if on_card:
+            torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        dist = umi_hamming(a, b)
+        if on_card:
+            torch.cuda.synchronize(dev)
     t2 = time.perf_counter()
-    out = dist.cpu().numpy()
+    with trace_span("device.fetch", what="K4"):
+        out = dist.cpu().numpy()
     t3 = time.perf_counter()
     span = DEVICE_SPAN
     span.calls += 1

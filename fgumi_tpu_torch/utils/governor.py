@@ -540,8 +540,12 @@ class ResourceGovernor:
     # --------------------------------------------------------------- rebalance
 
     def sample_once(self):
-        """One tick: the pressure sentinels, then (without pressure) the
-        demand rebalance. What the thread runs; tests call it directly."""
+        """One tick: the chaos point, the pressure sentinels, then (without
+        pressure) the demand rebalance. What the thread runs; tests call it
+        directly."""
+        from . import faults
+
+        faults.fire("governor.sample")
         self.samples += 1
         self._sample_pressure()
         if self.state == "ok":
@@ -600,6 +604,42 @@ class ResourceGovernor:
                 log.debug("governor: +%d MiB to %s (put wait +%.3fs, limit "
                           "now %d MiB)", granted // _MB, b.name, dput,
                           b.limit // _MB)
+
+    def has_activity(self) -> bool:
+        """Anything beyond a quiet run: an event, a rebalance, pressure."""
+        with self._lock:
+            return bool(self._events or self.rebalances
+                        or self.state != "ok")
+
+    def fold_metrics(self):
+        """Fold the governor's state into ``METRICS`` (called at command
+        exit inside the command's telemetry scope; the sampling thread
+        itself belongs to no scope)."""
+        from ..observe.metrics import METRICS
+
+        with self._lock:
+            METRICS.set("governor.samples", self.samples)
+            METRICS.set("governor.rebalances", self.rebalances)
+            METRICS.set("resource.state", self.state)
+            if self.rss_peak:
+                METRICS.max("resource.rss_peak_bytes", self.rss_peak)
+            if self.disk_free_min is not None:
+                METRICS.set("resource.disk_free_min_bytes",
+                            self.disk_free_min)
+            kinds = {}
+            for ev in self._events:
+                kinds[ev["kind"]] = kinds.get(ev["kind"], 0) + 1
+            for kind, n in kinds.items():
+                METRICS.set(f"resource.event.{kind}", n)
+            for e in self._entries.values():
+                snap = e.budget.snapshot()
+                p = f"governor.budget.{e.budget.name}"
+                METRICS.set(f"{p}.limit", snap["limit"])
+                METRICS.max(f"{p}.peak", snap["peak"])
+                METRICS.set(f"{p}.wait_s", snap["wait_s"])
+                METRICS.set(f"{p}.grows", snap["grows"])
+                METRICS.set(f"{p}.shrinks", snap["shrinks"])
+                METRICS.set(f"{p}.flips", snap["flips"])
 
     def snapshot(self) -> dict:
         """The governor's state as JSON-safe data."""

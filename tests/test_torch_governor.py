@@ -32,7 +32,7 @@ import pytest
 
 import fgumi_tpu.native as jax_native
 import fgumi_tpu.native.batch as jax_native_batch
-import fgumi_tpu_torch.io.bam as port_bam
+import fgumi_tpu_torch.utils.atomic as port_atomic
 import fgumi_tpu_torch.io.bgzf as BG
 import fgumi_tpu_torch.io.batch_reader as BR
 import fgumi_tpu_torch.utils.memory as port_memory
@@ -551,7 +551,8 @@ def test_bgzf_writer_enospc_marks_the_stream_broken(tmp_path):
 
 
 def test_bgzf_write_enospc_exits_4(inputs, tmp_path, monkeypatch, caplog):
-    monkeypatch.setattr(port_bam, "open",
+    # BAM outputs open their (temporary) file in utils/atomic.py
+    monkeypatch.setattr(port_atomic, "open",
                         lambda p, mode="rb": _FullDiskFile(p, mode)
                         if "w" in mode else open(p, mode), raising=False)
     out = tmp_path / "out.bam"
