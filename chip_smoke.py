@@ -187,7 +187,30 @@ Phases (any failed check exits nonzero; nothing is caught and passed over):
      ``device.fetch`` spans nested in it and the rest); each of these
      four commands is also run plain and with its options in turns
      (plain, observed, observed, plain; ``turns_*`` walls, ``overhead``
-     the ratio of the medians less one);
+     the ratio of the medians less one); then the ``dedup`` phase:
+     ``dedup -s adjacency -m -H`` on ``amplicon_group``'s input (384,000
+     reads, 16 position groups), the batch engine on ``cuda`` and ``cpu``
+     and at ``--threads 4``, and ``--classic`` on ``cuda``, each ``cuda``
+     run with one K4 launch a position group; records and the ``-m``/``-H``
+     files identical between the runs (``records()``, the files' bytes, and
+     the port's ``compare bams`` and ``compare metrics`` in child
+     processes); its ``dedup`` line with each run's reads/s beside fast
+     ``group``'s; then the ``resilience`` phase, each run a child process on
+     ``cuda`` whose ``resilience`` line names its fault:
+     ``device.dispatch:raise:1.0:2`` (exit 0, records equal to the clean
+     run's, 2 retries), ``device.dispatch:oom:1.0:1`` (exit 0, a halving,
+     one more wire launch, records equal) and ``device.dispatch:raise:1.0``
+     (exit 3, nothing published, one error line) on ``longtail_200k_fast``;
+     ``device.dispatch:oom:1.0:1`` on ``longtail_200k_fused`` (K1-f, its
+     halves through K1 as columns), ``duplex_bias_120k`` (K1-r: the split
+     batch joins its halves' resident arrays, so K5 launches and the host
+     combine's rows equal the clean run's) and ``many_quals_20k`` (K1-p2),
+     each equal to its clean ``cuda`` run; and a real
+     ``torch.cuda.OutOfMemoryError``: ``longtail_200k`` in 256 MiB record
+     batches, uncapped, then under caching-allocator caps
+     (``torch.cuda.set_per_process_memory_fraction``) of 0.65-0.95 of the
+     largest batch's device bytes (its upload and its K1 outputs), one of which
+     must halve on the real error, exit 0 and write the clean records;
 4. kernels at the main-path shapes the runs reported (the fast runs' largest
    batch; the simplex stage's largest batch of each ``cuda`` pipeline run:
    K1 on fused and ``--no-fuse`` ``pipeline_400k`` and on
@@ -200,7 +223,8 @@ Phases (any failed check exits nonzero; nothing is caught and passed over):
    combine; K1 at ``codec_320k``'s largest stage-1 batch and K6 at its
    largest combine (positions), held against ``combine_arrays``; K4 at the
    fast adjacency run's largest launch, and also at the paired run's, at
-   the fused ``pipeline_k4_50k`` run's and at 8,191 x 8,191 x 8, the largest
+   the fused ``pipeline_k4_50k`` run's, at the batch ``dedup`` run's and at
+   8,191 x 8,191 x 8, the largest
    dense launch), checked as in
    phase 2 and then timed beside the bound and the plain version's time:
    device time per launch from torch.profiler over 25 calls, CUDA-event time
@@ -218,8 +242,9 @@ Phases (any failed check exits nonzero; nothing is caught and passed over):
    run whose shape it was checked and timed at and its ``launches`` that
    run's count, taken between a reset and a read (K1 ``fixed5_1M_fast``,
    ``pipeline_400k_fused`` and ``duplex_240k``, K1-f ``fixed5_1M_fused`` and
-   ``pipeline_400k_device_filter``, K4 ``amplicon_group_adjacency_fast`` and
-   ``pipeline_k4_50k_fused``, K1-r and K5 ``duplex_240k``, K1 and K6
+   ``pipeline_400k_device_filter``, K4 ``amplicon_group_adjacency_fast``,
+   ``pipeline_k4_50k_fused`` and ``amplicon_dedup_adjacency_fast``, K1-r
+   and K5 ``duplex_240k``, K1 and K6
    ``codec_320k``, K1-p2 ``many_quals_20k``; each entry also with
    ``staged_path`` and ``staged_launches``, the staged run of that path
    and its count; each entry with its registers
@@ -3061,6 +3086,356 @@ def observe_phase(paths, work, pipes, staged, serial_runs):
     return out
 
 
+# the dedup phase: amplicon_group's input (384,000 reads, 16 position
+# groups of up to 5,583 distinct UMIs), dedup -s adjacency with its -m and
+# -H files; (label, device, flags), the first the reference run
+DEDUP_RUNS = (("fast", "cuda", []), ("fast_cpu", "cpu", []),
+              ("classic", "cuda", ["--classic"]),
+              ("fast_t4", "cuda", ["--threads", "4"]))
+
+
+def _child_kwargs(env=None) -> dict:
+    """A child process's cwd and environment: the repository root, on its
+    ``PYTHONPATH`` too, with ``env`` added."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    return {"cwd": root, "text": True,
+            "env": dict(os.environ, PYTHONPATH=root, **(env or {}))}
+
+
+def _child(argv, env=None, timeout=900):
+    """``python -m fgumi_tpu_torch`` with ``argv`` in a child process,
+    waited for."""
+    return subprocess.run([sys.executable, "-m", "fgumi_tpu_torch", *argv],
+                          capture_output=True, timeout=timeout,
+                          **_child_kwargs(env))
+
+
+def _error_lines(stderr: str) -> list:
+    return [ln for ln in stderr.splitlines() if " ERROR " in ln]
+
+
+def run_dedup(inp: str, out: str, device: str, flags):
+    from fgumi_tpu_torch import cli
+
+    stats_path = out + ".json"
+    rc = cli.main(["dedup", "-i", inp, "-o", out, "--device", device,
+                   "-s", "adjacency", "-m", out + ".m.tsv", "-H",
+                   out + ".h.tsv", "--stats-json", stats_path, *flags])
+    check(rc == 0, f"dedup --device {device} {' '.join(flags)} exited {rc}")
+    with open(stats_path) as f:
+        return json.load(f)
+
+
+def dedup_phase(paths, work, group_fast):
+    """``dedup`` on ``amplicon_group``'s input: the batch engine on cuda
+    and cpu, ``--classic`` and the batch engine at ``--threads 4`` on cuda,
+    each cuda run between a reset and a read of the counts with one K4
+    launch a position group (16). Records and the ``-m``/``-H`` files must
+    be identical between every run (``records()`` and the bytes here; the
+    port's ``compare bams`` and ``compare metrics`` in child processes,
+    started here and read by :func:`dedup_compare_finish`). Prints the
+    ``dedup`` line; returns (the batch engine's cuda summary, the compare
+    children)."""
+    inp = paths["amplicon_group"]
+    groups = AMPLICONS["amplicon_group"]["positions"]
+    runs = {}
+    for label, device, flags in DEDUP_RUNS:
+        name = f"amplicon_dedup_adjacency_{label}"
+        out = os.path.join(work, f"{name}.bam")
+        reset_counts()
+        st = run_dedup(inp, out, device, flags)
+        counts = read_counts()
+        check(st["engine"] == ("classic" if "--classic" in flags
+                               else "fast"),
+              f"{name}: ran the {st['engine']} engine")
+        check(counts == st["launches"],
+              f"{name}: the run counted {st['launches']}, the counters "
+              f"{counts}")
+        k4 = counts["umi_hamming"]
+        check(k4 == (groups if device == "cuda" else 0),
+              f"{name}: {k4} K4 launches for {groups} position groups")
+        check(st["device_span"]["calls"] == groups,
+              f"{name}: {st['device_span']['calls']} distance calls")
+        runs[label] = {"name": name, "out": out, "stats": st,
+                       "launches": counts}
+    ref = runs["fast"]
+    want = records(ref["out"])
+    check(len(want) == ref["stats"]["input_reads"] == 384000,
+          f"dedup: {len(want)} records of {ref['stats']['input_reads']}")
+    files = {}
+    for label, run in runs.items():
+        for kind in ("m", "h"):
+            with open(f"{run['out']}.{kind}.tsv", "rb") as f:
+                files[(label, kind)] = f.read()
+        if label != "fast":
+            check(records(run["out"]) == want,
+                  f"{run['name']}: records differ from the cuda batch "
+                  "engine's")
+            check(files[(label, "m")] == files[("fast", "m")]
+                  and files[(label, "h")] == files[("fast", "h")],
+                  f"{run['name']}: -m/-H files differ")
+    procs = []
+    for label, run in runs.items():
+        if label == "fast":
+            continue
+        for kind, a, b in (("bams", ref["out"], run["out"]),
+                           ("metrics", ref["out"] + ".m.tsv",
+                            run["out"] + ".m.tsv"),
+                           ("metrics", ref["out"] + ".h.tsv",
+                            run["out"] + ".h.tsv")):
+            procs.append((f"{label} {kind} {os.path.basename(b)}",
+                          subprocess.Popen(
+                              [sys.executable, "-m", "fgumi_tpu_torch",
+                               "compare", kind, "-a", a, "-b", b],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              **_child_kwargs())))
+    m = ref["stats"]["metrics"]
+    summary = {
+        "case": "amplicon_dedup_adjacency", "input_reads": len(want),
+        "templates": m["total_templates"],
+        "duplicate_rate": m["duplicate_rate"],
+        "runs": {label: {
+            "engine": r["stats"]["engine"], "device": r["stats"]["device"],
+            "threads": r["stats"].get("threads", 0),
+            "reads_per_s": r["stats"]["input_reads"] / r["stats"]["wall_s"],
+            "wall_s": r["stats"]["wall_s"],
+            **{k: r["stats"][k] for k in ("read_s", "process_s", "write_s")
+               if k in r["stats"]},
+            "k4_launches": r["launches"]["umi_hamming"],
+            "device_span": r["stats"]["device_span"]}
+            for label, r in runs.items()},
+        "group_fast_reads_per_s": group_fast["reads_per_s"],
+        "records_identical": True, "metrics_files_identical": True}
+    print("dedup " + json.dumps(summary), flush=True)
+    out = dict(summary, launches=ref["launches"],
+               largest_launch=ref["stats"]["device_span"]["largest"])
+    return out, procs
+
+
+def dedup_compare_finish(procs):
+    """Every ``compare`` child of the dedup phase exited 0 with its match
+    line; prints the ``dedup_compare`` line."""
+    results = {}
+    for what, proc in procs:
+        _, err = proc.communicate(timeout=900)
+        last = err.strip().splitlines()[-1] if err.strip() else ""
+        results[what] = {"rc": proc.returncode, "line": last}
+        check(proc.returncode == 0 and "match" in last,
+              f"dedup compare {what}: exit {proc.returncode}: {last}")
+    print("dedup_compare " + json.dumps(results), flush=True)
+
+
+# the resilience phase's injected faults, each in a child process on cuda:
+# (name, command, input, flags, clean run, FGUMI_TPU_FAULT, exit code)
+def resilience_cases(paths, e2e, duplexes):
+    lt, ltf = e2e["longtail_200k"]["fast"], e2e["longtail_200k"]["fused"]
+    fused = ["--min-reads", "1", "--device-filter", *FILTER_OPTS]
+    return (
+        ("longtail_200k_fast retry", "simplex", paths["longtail_200k"], [],
+         lt, "device.dispatch:raise:1.0:2", 0),
+        ("longtail_200k_fast oom", "simplex", paths["longtail_200k"], [], lt,
+         "device.dispatch:oom:1.0:1", 0),
+        ("longtail_200k_fast unbounded", "simplex", paths["longtail_200k"],
+         [], lt, "device.dispatch:raise:1.0", 3),
+        ("longtail_200k_fused oom", "simplex", paths["longtail_200k"], fused,
+         ltf, "device.dispatch:oom:1.0:1", 0),
+        ("duplex_bias_120k oom", "duplex", paths["duplex_bias_120k"],
+         ["--min-reads", "2", "1", "0"], duplexes["duplex_bias_120k"]["cuda"],
+         "device.dispatch:oom:1.0:1", 0),
+        ("many_quals_20k oom", "simplex", paths["many_quals_20k"], [],
+         e2e["many_quals_20k"]["fast"], "device.dispatch:oom:1.0:1", 0))
+
+
+def fault_run(name, command, inp, flags, clean, spec, rc_want, work):
+    """One injected-fault run in a child process: its exit code; at 0 its
+    records equal to the clean cuda run's and the retry or split counted
+    (an out-of-memory of the simplex wire route: one more K1 launch); at 3
+    nothing published and one error line. Returns its summary."""
+    out = os.path.join(work, "res_" + name.replace(" ", "_") + ".bam")
+    stats_path = out + ".json"
+    t0 = time.monotonic()
+    p = _child([command, "-i", inp, "-o", out, "--device", "cuda",
+                "--stats-json", stats_path, *flags],
+               {"FGUMI_TPU_FAULT": spec})
+    wall = time.monotonic() - t0
+    errors = _error_lines(p.stderr)
+    check(p.returncode == rc_want,
+          f"{name} [{spec}]: exit {p.returncode}, want {rc_want}: "
+          f"{p.stderr[-2000:]}")
+    summary = {"case": name, "fault": spec, "exit": p.returncode,
+               "child_wall_s": wall}
+    if rc_want:
+        base = os.path.basename(out)
+        leftovers = [f for f in os.listdir(work)
+                     if f.startswith((base, f".{base}"))]
+        check(leftovers == [], f"{name} [{spec}]: published {leftovers}")
+        check(len(errors) == 1, f"{name} [{spec}]: error lines {errors}")
+        summary.update(error_line=errors[0], published=False)
+        return summary
+    check(errors == [], f"{name} [{spec}]: error lines {errors}")
+    with open(stats_path) as f:
+        st = json.load(f)
+    dev = st["device_stats"]
+    check(records(out) == records(clean["out"]),
+          f"{name} [{spec}]: records differ from the clean cuda run's")
+    launches = st["launches"]
+    if "raise" in spec:
+        check("retry" in p.stderr and dev.get("dispatch_retries") == 2,
+              f"{name} [{spec}]: retries {dev.get('dispatch_retries')}")
+        check(launches == clean["launches"],
+              f"{name} [{spec}]: launches {launches}, the clean run's "
+              f"{clean['launches']}")
+    else:
+        check("halving" in p.stderr and dev.get("batch_splits", 0) >= 1,
+              f"{name} [{spec}]: splits {dev.get('batch_splits')}")
+        if command == "simplex" and not flags:
+            # the halves launch in place of the batch: one launch more
+            # (a half of a packed2 batch with at most 63 distinct quals
+            # takes K1)
+            wire = ("consensus_wire_full", "consensus_wire_packed2")
+            got = sum(launches[k] for k in wire)
+            was = sum(clean["launches"][k] for k in wire)
+            check(got == was + 1,
+                  f"{name} [{spec}]: {got} K1 and K1-p2 launches, the clean "
+                  f"run's {was}")
+    if command == "duplex" and "oom" in spec:
+        # the halves launch K1-r in place of the batch and their resident
+        # arrays are joined: the strand combine runs on K5 as in the clean
+        # run
+        wire = ("consensus_wire_full", "consensus_wire_resident",
+                "consensus_wire_packed2")
+        got = sum(launches[k] for k in wire)
+        was = sum(clean["launches"][k] for k in wire)
+        check(got == was + 1,
+              f"{name} [{spec}]: {got} wire launches, the clean run's {was}")
+        for key in ("combine_device_rows", "combine_host_rows"):
+            check(st[key] == clean[key],
+                  f"{name} [{spec}]: {key} {st[key]}, the clean run's "
+                  f"{clean[key]}")
+        check(launches["duplex_combine"] == clean["launches"]["duplex_combine"],
+              f"{name} [{spec}]: {launches['duplex_combine']} K5 launches, "
+              f"the clean run's {clean['launches']['duplex_combine']}")
+    summary.update(records_identical=True, launches=launches,
+                   dispatch_retries=dev.get("dispatch_retries", 0),
+                   batch_splits=dev.get("batch_splits", 0),
+                   halving=[ln.split(": ", 1)[-1]
+                            for ln in p.stderr.splitlines()
+                            if "halving" in ln][:2])
+    return summary
+
+
+# a child that caps the caching allocator, runs the port's CLI and writes
+# the peak reserved and allocated bytes: argv fraction, report path, then
+# the CLI's arguments
+_CAPPED_CHILD = """
+import json, sys, torch
+frac = float(sys.argv[1])
+if frac > 0:
+    torch.cuda.set_per_process_memory_fraction(frac, 0)
+from fgumi_tpu_torch.cli import main
+rc = main(sys.argv[3:])
+with open(sys.argv[2], "w") as f:
+    json.dump({"rc": rc, "max_reserved": torch.cuda.max_memory_reserved(),
+               "max_allocated": torch.cuda.max_memory_allocated()}, f)
+sys.exit(rc)
+"""
+# record batches of up to 256 MiB (the whole input in one or two): their
+# tensors are past the caching allocator's 10 MiB mark, which it rounds to
+# 2 MiB (smaller requests take 20 MiB segments, too coarse for a cap
+# between half and all of a batch)
+REAL_OOM_BATCH = ["--batch-bytes", str(256 << 20)]
+REAL_OOM_FRACTIONS = (0.95, 0.85, 0.75, 0.65)
+
+
+def capped_run(label, inp, work, cap_bytes):
+    """``simplex`` on ``inp`` in a child whose allocator is capped at
+    ``cap_bytes`` (0: no cap): (exit code, stderr, report, stats, out)."""
+    import torch
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    out = os.path.join(work, f"res_real_oom_{label}.bam")
+    report = out + ".mem.json"
+    p = subprocess.run(
+        [sys.executable, "-c", _CAPPED_CHILD, repr(cap_bytes / total),
+         report, "simplex", "-i", inp, "-o", out, "--device", "cuda",
+         "--stats-json", out + ".json", *REAL_OOM_BATCH],
+        capture_output=True, timeout=900, **_child_kwargs())
+    rep = st = None
+    if os.path.exists(report):
+        with open(report) as f:
+            rep = json.load(f)
+    if p.returncode == 0:
+        with open(out + ".json") as f:
+            st = json.load(f)
+    return p.returncode, p.stderr, rep, st, out
+
+
+def real_oom_case(inp, work, clean_fast, pool):
+    """A real ``torch.cuda.OutOfMemoryError``: ``longtail_200k``'s input in
+    256 MiB record batches, first uncapped (its peak reserved and
+    allocated bytes; the largest batch's device bytes from its wire upload
+    and K1's outputs), then at caps of :data:`REAL_OOM_FRACTIONS` of those
+    bytes at once. A cap passes when its run halved on a
+    real out-of-memory, exited 0 and wrote the clean run's records; at
+    least one must pass, else the phase fails. Returns its summary."""
+    rc, err, rep, st, out = capped_run("clean", inp, work, 0)
+    check(rc == 0, f"real_oom clean run exited {rc}: {err[-2000:]}")
+    want = records(clean_fast["out"])
+    check(records(out) == want,
+          "real_oom: one batch's records differ from 16 MiB batches'")
+    # the largest batch's device bytes: its wire upload and K1's outputs
+    N, L, J = max(st["batch_shapes"], key=lambda s: s[0] * s[1])
+    batch_bytes = wire_kernel_bytes(N, L, J, FULL_COL_BYTES)
+    caps = [int(f * batch_bytes) for f in REAL_OOM_FRACTIONS]
+    futs = {cap: pool.submit(capped_run, f"cap{cap}", inp, work, cap)
+            for cap in caps}
+    attempts, passed = [], None
+    for cap, fut in futs.items():
+        rc, err, rep_c, st_c, out_c = fut.result()
+        halving = [ln.split(": ", 1)[-1] for ln in err.splitlines()
+                   if "halving" in ln]
+        real = any("CUDA out of memory" in h for h in halving)
+        ok = (rc == 0 and real and st_c["device_stats"].get(
+            "batch_splits", 0) >= 1 and records(out_c) == want)
+        attempts.append({
+            "cap_bytes": cap, "cap_of_batch": cap / batch_bytes, "exit": rc,
+            "batch_splits": (st_c or {}).get("device_stats", {}).get(
+                "batch_splits"), "real_oom": real, "passed": ok,
+            "max_reserved": (rep_c or {}).get("max_reserved"),
+            "last_error": (_error_lines(err) or [""])[-1][-300:],
+            "halving": halving[:2]})
+        if ok and passed is None:
+            passed = attempts[-1]
+    summary = {"case": "longtail_200k real_oom",
+               "batches": st["batch_shapes"], "largest": [N, L, J],
+               "batch_device_bytes": batch_bytes,
+               "uncapped_max_reserved": rep["max_reserved"],
+               "uncapped_max_allocated": rep["max_allocated"],
+               "attempts": attempts, "passed": passed}
+    check(passed is not None,
+          f"real_oom: no cap raised a real out-of-memory that halved and "
+          f"matched: {json.dumps(summary)}")
+    return summary
+
+
+def resilience_phase(paths, work, e2e, duplexes):
+    """The device resilience of the port, every run a child process on
+    cuda that names its fault in its ``resilience`` line: the injected
+    faults of :func:`resilience_cases` and the real out-of-memory of
+    :func:`real_oom_case`, run side by side (no time is read here)."""
+    with cf.ThreadPoolExecutor(max_workers=8) as pool:
+        futs = [pool.submit(fault_run, *case, work)
+                for case in resilience_cases(paths, e2e, duplexes)]
+        # its capped runs go to the same pool once the fault runs free it
+        real_fut = pool.submit(real_oom_case, paths["longtail_200k"], work,
+                               e2e["longtail_200k"]["fast"], pool)
+        results = []
+        for f in futs + [real_fut]:
+            results.append(f.result())
+            print("resilience " + json.dumps(results[-1]), flush=True)
+    return results
+
+
 def libdeflate_probe() -> str:
     """Whether this host has libdeflate's header and shared library (the
     port links no compression library; this only looks)."""
@@ -3264,6 +3639,10 @@ def main():
         io_phase(e2e["fixed5_1M"]["fast"]["out"])
         observe_phase(paths, work, pipes, staged, staged_serial_runs(
             e2e, groups, pipes, duplexes, codecs))
+        dedup, compares = dedup_phase(
+            paths, work, groups["amplicon_group_adjacency_fast"])
+        resilience_phase(paths, work, e2e, duplexes)
+        dedup_compare_finish(compares)
 
     shapes = {case: {kind: s["largest_batch"] for kind, s in runs.items()}
               for case, runs in e2e.items()}
@@ -3272,7 +3651,8 @@ def main():
         "k4_pipeline": pk4["fused_cuda"]["k4_largest_launch"],
         "k4_paired": groups["amplicon_paired_paired_fast"]["largest_launch"],
         "k4_dense_max": (8191, 8191, 8),
-        "k4": groups["amplicon_group_adjacency_fast"]["largest_launch"]}, {
+        "k4": groups["amplicon_group_adjacency_fast"]["largest_launch"],
+        "k4_dedup": dedup["largest_launch"]}, {
         "k1_pipeline": ("full", p400["fused_cuda"]["simplex_largest_batch"]),
         "k1_pipeline_staged": (
             "full", p400["staged_cuda"]["simplex_largest_batch"]),
@@ -3333,6 +3713,9 @@ def main():
                      pk4["fused_cuda"]["launches"]["umi_hamming"],
                      REPLACES_HAMMING, "pipeline_k4_50k_fused",
                      HAMMING_SOURCE),
+        kernel_entry("umi_hamming", main_k["k4_dedup"],
+                     dedup["launches"]["umi_hamming"], REPLACES_HAMMING,
+                     "amplicon_dedup_adjacency_fast", HAMMING_SOURCE),
         kernel_entry("consensus_wire_resident", main_k["k1r_duplex"],
                      d240["launches"]["consensus_wire_resident"],
                      REPLACES_RESIDENT, "duplex_240k",

@@ -1,10 +1,10 @@
 """Command line of the PyTorch/CUDA port: ``pipeline``, ``extract``,
-``sort``, ``group``, ``simplex``, ``duplex``, ``codec``, ``filter`` and
-``simulate grouped-reads|duplex-reads|codec-reads|mapped-reads|
-fastq-reads``.
+``sort``, ``group``, ``dedup``, ``simplex``, ``duplex``, ``codec``,
+``filter``, ``compare bams|metrics`` and ``simulate grouped-reads|
+duplex-reads|codec-reads|mapped-reads|fastq-reads``.
 
-``simplex``, ``duplex``, ``codec`` and ``group`` take ``--device
-{cuda,cpu}`` (default
+``simplex``, ``duplex``, ``codec``, ``group`` and ``dedup`` take
+``--device {cuda,cpu}`` (default
 ``cuda``): ``cuda`` runs the hand-written CUDA kernels and exits 2 when no
 CUDA device is present; ``cpu`` runs the kernels' plain PyTorch versions.
 ``simplex`` runs the fast (native-batch) engine unless ``--classic`` asks
@@ -23,7 +23,9 @@ K6 on the device) unless ``--classic`` or ``--rejects`` asks for the
 per-molecule one. ``group`` runs the fast (native-batch)
 engine unless ``--classic`` asks for the per-template engine; on either,
 position groups of at least 1,024 distinct UMIs compute their distances
-through kernel K4. ``filter`` takes simplex and duplex consensus records
+through kernel K4; ``dedup`` marks duplicates on the same assigners (its
+batch engine unless ``--classic``). ``filter`` takes simplex and duplex
+consensus records
 and runs its batch engine unless ``--classic`` (or ``--ref``,
 ``--reverse-per-base-tags`` or ``--require-single-strand-agreement``) asks
 for the per-record one; both take the EM-Seq/TAPS depth mask, and the
@@ -32,7 +34,10 @@ corrupt or truncated input exits 2 with one line, as the reference's
 does; so do its other exits: 1 on a broken output pipe, 3 on an injected
 fault (``FGUMI_TPU_FAULT``), 4 on a full disk (``ENOSPC``) or another
 exhausted resource, 5 on a refuted ``--audit-output`` and 130 on an
-interrupt, each with at most one line and no traceback. The reference's
+interrupt, each with at most one line and no traceback. A device batch
+that its retries or out-of-memory halvings cannot finish exits 3
+(injected), 4 (device memory) or 1 (a CUDA error): the reference finishes
+it on a host engine, which the port does not have. The reference's
 global options come before the command (``-v``, ``--log-level``,
 ``--no-atomic-output``, ``--audit-output``, ``--trace``, ``--run-report``,
 ``--heartbeat``, ``--flight-dump-dir``; ``observe/``), and the outermost
@@ -1772,6 +1777,271 @@ def cmd_group(args, argv, source=None, sink=None):
     return 0
 
 
+def _add_dedup(sub):
+    p = sub.add_parser("dedup",
+                       help="Mark or remove PCR duplicates using UMIs")
+    p.add_argument("-i", "--input", required=True,
+                   help="template-coordinate sorted BAM (zipper + sort)")
+    p.add_argument("-o", "--output", required=True)
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="cuda (default): the CUDA UMI distance kernel; cpu: "
+                        "its plain PyTorch version")
+    p.add_argument("-m", "--metrics", default=None, help="dedup metrics TSV")
+    p.add_argument("-H", "--family-size-histogram", default=None)
+    p.add_argument("-r", "--remove-duplicates", action="store_true",
+                   help="drop duplicates instead of setting the 0x400 flag")
+    p.add_argument("-q", "--min-map-q", type=int, default=0)
+    p.add_argument("-n", "--include-non-pf-reads", action="store_true")
+    p.add_argument("--include-unmapped", action="store_true",
+                   help="emit no-mapped-read templates untouched instead of "
+                        "dropping them")
+    p.add_argument("-s", "--strategy", default="adjacency",
+                   choices=["identity", "edit", "adjacency", "paired"])
+    p.add_argument("-e", "--edits", type=int, default=1)
+    p.add_argument("-l", "--min-umi-length", type=int, default=None)
+    p.add_argument("--no-umi", action="store_true",
+                   help="dedup by position only, orientation-agnostic "
+                        "(Picard-like)")
+    p.add_argument("--index-threshold", type=int, default=None,
+                   help="minimum distinct UMIs per group before the "
+                        "pigeonhole candidate search replaces the dense "
+                        "pairwise scan; 0 = always dense (default 8192)")
+    p.add_argument("--classic", action="store_true",
+                   help="the per-template engine instead of the batch "
+                        "engine")
+    p.add_argument("--stats-json", default=None, metavar="PATH",
+                   help="write the run's counters (engine, records, wall, "
+                        "the batch engine's read/process/write walls, "
+                        "kernel launches, the distance function's device "
+                        "span, the dedup metrics) as JSON")
+    _add_compression_level(p)
+    _add_threads(p, ">= 2: reader and writer threads around the batch "
+                    "engine (records unchanged); 0/1 runs inline")
+    _add_stats(p)
+    _add_max_memory(p)
+    _add_pipeline_compat(p)
+    p.set_defaults(func=cmd_dedup)
+
+
+class _CountedReader:
+    """A record reader that counts the records it yields (the per-template
+    engine's input count)."""
+
+    def __init__(self, reader):
+        self.reader = reader
+        self.header = reader.header
+        self.n = 0
+
+    def __iter__(self):
+        for rec in self.reader:
+            self.n += 1
+            yield rec
+
+
+def _run_fast_dedup(args, reader, writer):
+    """The batch engine on the stage runner, then its flush. Returns the
+    metrics, the family sizes, the input records, the busy wall of each
+    stage and the StageTimes."""
+    from .commands.fast_group import FastDedup
+    from .pipeline import StageTimes, run_stages
+    from .umi.assigners import make_assigner
+    from .utils.progress import ProgressTracker
+
+    strategy, edits = args.strategy, args.edits
+    if args.no_umi:
+        strategy, edits = "identity", 0
+    dd = FastDedup(
+        reader.header, make_assigner(strategy, edits, args.device),
+        min_mapq=args.min_map_q, include_non_pf=args.include_non_pf_reads,
+        min_umi_length=args.min_umi_length, no_umi=args.no_umi,
+        include_unmapped=args.include_unmapped,
+        remove_duplicates=args.remove_duplicates)
+    stats = StageTimes()
+    progress = ProgressTracker("dedup")
+    n_in = [0]
+
+    def process(batch):
+        progress.add(batch.n)
+        n_in[0] += batch.n
+        return dd.process_batch(batch)
+
+    try:
+        run_stages(iter(reader), process, writer.write_serialized,
+                   threads=args.threads, stats=stats, **_stage_kwargs(args))
+        t = time.monotonic()
+        for chunk in dd.flush():
+            writer.write_serialized(chunk)
+        flush_s = time.monotonic() - t
+    finally:
+        progress.finish()
+    busy = stats.busy
+    walls = {"read_s": busy.get("read", 0.0),
+             "process_s": busy.get("process", 0.0)
+             + busy.get("process+write", 0.0) + flush_s,
+             "write_s": busy.get("write", 0.0)}
+    metrics, family_sizes = dd.result()
+    return metrics, family_sizes, n_in[0], walls, stats
+
+
+def cmd_dedup(args, argv):
+    """``dedup``: the batch engine (``FastDedup``) unless ``--classic``;
+    position groups of at least 1,024 distinct UMIs compute their UMI
+    distances on ``--device`` (K4 on ``cuda``)."""
+    from .commands.dedup import (_METRIC_COLUMNS, run_dedup,
+                                 write_family_size_histogram, write_metrics)
+    from .core.template import is_template_coordinate_sorted
+    from .io.bam import BamReader, BamWriter
+    from .io.batch_reader import BamBatchReader
+    from .umi import assigners
+
+    if _bad_level(args) or _no_cuda("dedup", args.device):
+        return 2
+    if args.index_threshold is not None:
+        assigners.set_index_threshold(args.index_threshold)
+    # argument combinations are refused before the output is touched
+    if args.strategy == "paired" and args.no_umi:
+        log.error("--no-umi cannot be used with --strategy paired")
+        return 2
+    if args.strategy == "paired" and args.min_umi_length is not None:
+        log.error("Paired strategy cannot be used with --min-umi-length")
+        return 2
+    if not args.classic:
+        from .native import get_lib
+
+        get_lib()  # build the native library before the clock starts
+    engine = "classic" if args.classic else "fast"
+    walls = {}
+    stage_times = None
+    counters0 = _kernel_counters()
+    assigners.DEVICE_SPAN.reset()
+    t0 = time.monotonic()
+    try:
+        reader = BamReader(args.input) if args.classic \
+            else BamBatchReader(args.input)
+        with reader:
+            if not is_template_coordinate_sorted(reader.header.text):
+                log.error("dedup requires template-coordinate sorted input "
+                          "(header must advertise SS:template-coordinate). "
+                          "Prepare with: fgumi-tpu zipper ... | fgumi-tpu "
+                          "sort --order template-coordinate")
+                return 2
+            out_header = _header_with_pg(reader.header, " ".join(argv))
+            with BamWriter(args.output, out_header,
+                           level=args.compression_level) as writer:
+                if args.classic:
+                    counted = _CountedReader(reader)
+                    metrics, family_sizes = run_dedup(
+                        counted, writer, strategy=args.strategy,
+                        edits=args.edits, min_mapq=args.min_map_q,
+                        include_non_pf=args.include_non_pf_reads,
+                        min_umi_length=args.min_umi_length,
+                        no_umi=args.no_umi,
+                        include_unmapped=args.include_unmapped,
+                        remove_duplicates=args.remove_duplicates,
+                        device=args.device)
+                    n_in = counted.n
+                else:
+                    metrics, family_sizes, n_in, walls, stage_times = \
+                        _run_fast_dedup(args, reader, writer)
+    except (ValueError, OSError) as e:
+        if isinstance(e, OSError) and e.errno == errno.ENOSPC:
+            raise
+        log.error("%s", e)
+        return 2
+    dt = time.monotonic() - t0
+    if args.stats and stage_times is not None:
+        _print_stats(stage_times, dt)
+    log.info("dedup: %d templates (%d unique, %d duplicate, rate %.4f), "
+             "%d reads in %.2fs",
+             metrics.total_templates, metrics.unique_templates,
+             metrics.duplicate_templates, metrics.duplicate_rate(),
+             metrics.total_reads, dt)
+    dropped = metrics.filter.as_dict()
+    dropped.pop("total_templates", None)
+    dropped.pop("accepted", None)
+    if dropped:
+        log.info("dedup: templates dropped by filtering: %s", dropped)
+    if metrics.missing_tc_tag:
+        log.warning("%d secondary/supplementary reads missing the tc tag "
+                    "(run zipper before sort)", metrics.missing_tc_tag)
+    if args.metrics:
+        write_metrics(metrics, args.metrics)
+    if args.family_size_histogram:
+        write_family_size_histogram(family_sizes, args.family_size_histogram)
+    if args.stats_json:
+        counters = _kernel_counters()
+        stats = {"device": args.device, "engine": engine,
+                 "strategy": args.strategy, "input_reads": n_in,
+                 "wall_s": dt, **walls,
+                 "launches": {k: counters[k] - counters0[k]
+                              for k in counters},
+                 "device_span": assigners.DEVICE_SPAN.as_dict(),
+                 "metrics": {**{c: getattr(metrics, c)
+                                for c in _METRIC_COLUMNS
+                                if c != "duplicate_rate"},
+                             "duplicate_rate": metrics.duplicate_rate(),
+                             "filter": metrics.filter.as_dict()},
+                 "family_sizes": family_sizes}
+        if stage_times is not None:
+            stats.update(_stage_stats(args, stage_times))
+        with open(args.stats_json, "w") as f:
+            json.dump(stats, f, indent=1)
+    return 0
+
+
+def _add_compare(sub):
+    p = sub.add_parser("compare",
+                       help="Compare files for testing and validation")
+    ps = p.add_subparsers(dest="compare_mode", required=True)
+    b = ps.add_parser("bams", help="Compare two BAMs (exit 1 on mismatch)")
+    b.add_argument("-a", required=True, help="first BAM")
+    b.add_argument("-b", required=True, help="second BAM")
+    b.add_argument("--mode", choices=["content", "grouping"], default=None,
+                   help="content: exact record compare; grouping: "
+                        "MI-invariant molecule equivalence (default: "
+                        "content, or the --command preset's mode)")
+    b.add_argument("--command", default=None, dest="preset",
+                   choices=["extract", "zipper", "sort", "correct", "dedup",
+                            "clip", "filter", "group", "simplex", "duplex",
+                            "codec"],
+                   help="the mode and ignore-order defaults for comparing "
+                        "one pipeline stage's output (the reference's "
+                        "CommandPreset): group -> grouping mode; sort -> "
+                        "the sort-verify engine; every other -> exact "
+                        "content. An explicit --mode/--ignore-order wins")
+    b.add_argument("--ignore-order", type=_parse_bool, nargs="?",
+                   const=True, default=None,
+                   help="content mode: compare as multisets (true/false; "
+                        "an explicit value overrides a --command preset in "
+                        "either direction)")
+    b.add_argument("--ignore-tags", nargs="*", default=[],
+                   help="tags excluded from comparison")
+    b.add_argument("--tag", default="MI",
+                   help="grouping tag (grouping mode)")
+    b.add_argument("--verify-sort", action="store_true",
+                   help="also verify that each input satisfies its "
+                        "header's declared sort order")
+    b.set_defaults(func=cmd_compare_bams)
+    m = ps.add_parser("metrics",
+                      help="Compare two metric TSVs (exit 1 on mismatch)")
+    m.add_argument("-a", required=True)
+    m.add_argument("-b", required=True)
+    m.add_argument("--float-tolerance", type=float, default=1e-5)
+    m.set_defaults(func=cmd_compare_metrics)
+
+
+def cmd_compare_bams(args, argv):
+    from .commands.compare import run_compare_bams
+
+    return run_compare_bams(args)
+
+
+def cmd_compare_metrics(args, argv):
+    from .commands.compare import run_compare_metrics
+
+    return run_compare_metrics(args)
+
+
 # options of the reference `pipeline` that the port does not implement
 _PIPELINE_NOT_PORTED = (
     ("shard", "--shard", _given),
@@ -2737,9 +3007,8 @@ def _refuse_globals(args) -> int:
 
     spec = faults.unported_spec()
     if spec is not None:
-        log.error("FGUMI_TPU_FAULT %s: not yet ported (the device fault "
-                  "points and kind oom need the device retry and batch "
-                  "split)", spec)
+        log.error("FGUMI_TPU_FAULT %s: not yet ported (device.fetch needs "
+                  "the result sentinel, serve.* the job service)", spec)
         return 2
     return 0
 
@@ -2758,6 +3027,8 @@ def build_parser():
     _add_codec(sub)
     _add_filter(sub)
     _add_group(sub)
+    _add_dedup(sub)
+    _add_compare(sub)
     _add_simulate(sub)
     _add_trace_merge(sub)
     return parser
@@ -2766,8 +3037,9 @@ def build_parser():
 def _run_command(args, argv):
     """Dispatch to the subcommand under the reference's exit-code contract:
     2 on a diagnosed input problem, 3 on an injected fault, 4 on resource
-    exhaustion or a full disk, 5 on a refuted output audit, 1 on a broken
-    pipe and 130 on an interrupt, each with at most one line."""
+    exhaustion (device memory too) or a full disk, 5 on a refuted output
+    audit, 1 on a broken pipe or a CUDA error in a dispatch and 130 on an
+    interrupt, each with at most one line."""
     from .observe.flight import FLIGHT
     from .utils.faults import InjectedFault
 
@@ -2795,6 +3067,11 @@ def _run_command(args, argv):
         FLIGHT.dump("resource-exhausted", exc=e)
         log.error("%s", e)
         return 4
+    except RuntimeError as e:
+        rc = _device_failure(e)
+        if rc is None:
+            raise
+        return rc
     except BrokenPipeError:
         # stdout's reader went away (before the OSError clause: it is
         # one). Point stdout at /dev/null so the interpreter's flush of the
@@ -2815,6 +3092,39 @@ def _run_command(args, argv):
     except KeyboardInterrupt:
         log.error("interrupted")
         return 130
+
+
+def _device_failure(e):
+    """The exit code of a device failure that reached the top, logged as
+    one line, or None for any other error. The reference finishes such a
+    batch on its host engine; the port has none, so the command fails and
+    publishes nothing: 4 for device memory that the batch split could not
+    get under (a real ``torch.cuda.OutOfMemoryError``; an injected one
+    exits 3 as every injected fault does), 1 for a CUDA error in a
+    dispatch or a fetch (``ops.kernel.DeviceFailure``) or anywhere else."""
+    from .observe.flight import FLIGHT
+
+    torch = sys.modules.get("torch")
+    if torch is not None and isinstance(e, torch.cuda.OutOfMemoryError):
+        FLIGHT.dump("resource-exhausted", exc=e)
+        lines = str(e).strip().splitlines()
+        log.error("device memory exhausted: %s",
+                  lines[0] if lines else "out of memory")
+        return 4
+    kernel = sys.modules.get(__package__ + ".ops.kernel")
+    if kernel is not None and isinstance(e, kernel.DeviceFailure):
+        FLIGHT.dump("unhandled-exception", exc=e)
+        log.error("%s", e)
+        return 1
+    if kernel is not None and kernel._is_cuda_error(e):
+        # a CUDA error outside the consensus kernels' dispatches and
+        # fetches (a launch is asynchronous: it surfaces at the next call
+        # that waits on the card)
+        FLIGHT.dump("unhandled-exception", exc=e)
+        log.error("device error: %s: %s", type(e).__name__,
+                  kernel._first_line(e))
+        return 1
+    return None
 
 
 def _telemetry_config(args):

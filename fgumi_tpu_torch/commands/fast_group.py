@@ -14,7 +14,8 @@ Semantics contract: byte-identical output records, identical filter metrics
 and family-size histograms to commands/group.py::run_group on the same
 stream. The position group spanning a batch boundary is carried as Python
 Templates and runs the per-template path, sharing the assigner (and so the
-global molecule counter).
+global molecule counter). :class:`FastDedup` is ``dedup``'s batch engine
+on the same passes, held to ``commands/dedup.py``.
 """
 
 import numpy as np
@@ -782,3 +783,332 @@ class FastGrouper:
                 sorted(self.position_group_sizes.items())),
         }
 
+
+class FastDedup(FastGrouper):
+    """The batch ``dedup`` engine (``commands/dedup.py``'s semantics over
+    RecordBatches, ``dedup``'s default engine).
+
+    Reuses the grouper's template, key and filter passes; differs in the
+    per-template metric counting, the unmapped pass-through split, the
+    Picard best-template choice (``nb.qual_scores``), the duplicate flag
+    and MI rewrite over every record (secondary and supplementary too,
+    natively through ``rewrite_tag_records(new_flags=)``) and the per-read
+    metrics. Position groups with CB cell barcodes or under ``--no-umi``
+    take the per-template path, as the batch-boundary carry does.
+    """
+
+    # dedup also reads tc (template-coordinate keys from zipper) and CB
+    # (cell partitions), in the same fused aux scan
+    _PREFETCH_TAGS = FastGrouper._PREFETCH_TAGS + [b"tc", b"CB"]
+
+    def __init__(self, header, assigner, *, umi_tag=b"RX", assigned_tag=b"MI",
+                 min_mapq=0, include_non_pf=False, min_umi_length=None,
+                 no_umi=False, include_unmapped=False,
+                 remove_duplicates=False):
+        from .dedup import DedupMetrics
+
+        super().__init__(header, assigner, umi_tag=umi_tag,
+                         assigned_tag=assigned_tag, min_mapq=min_mapq,
+                         include_non_pf=include_non_pf,
+                         min_umi_length=min_umi_length, no_umi=no_umi,
+                         allow_unmapped=False)
+        self.include_unmapped = include_unmapped
+        self.remove_duplicates = remove_duplicates
+        self.dmetrics = DedupMetrics()
+        self.metrics = self.dmetrics.filter  # FilterMetrics slot
+
+    # ------------------------------------------------------------------ slow
+
+    def _defer_templates(self, batch, tbounds, ts):
+        for t in ts:
+            self._carry.append(
+                _PySeg([self._materialize(batch, tbounds, int(t))]))
+
+    def _flush_carry(self):
+        segs, self._carry, self._carry_key = self._carry, [], None
+        templates = [t for seg in segs for t in seg.templates]
+        return self._emit_slow_group(templates) if templates else []
+
+    def _emit_slow_group(self, templates):
+        from .dedup import (_record_with_flag_and_mi, filter_dedup_template,
+                            is_unmapped_passthrough, process_group)
+
+        dm = self.dmetrics
+        passthrough, candidates = [], templates
+        if self.include_unmapped:
+            passthrough, candidates = [], []
+            for t in templates:
+                (passthrough if is_unmapped_passthrough(t)
+                 else candidates).append(t)
+        kept = [t for t in candidates
+                if filter_dedup_template(t, umi_tag=self.umi_tag,
+                                         min_mapq=self.min_mapq,
+                                         include_non_pf=self.include_non_pf,
+                                         min_umi_length=self.min_umi_length,
+                                         no_umi=self.no_umi,
+                                         metrics=dm.filter)]
+        if kept:
+            sizes = process_group(kept, self.assigner, umi_tag=self.umi_tag,
+                                  min_umi_length=self.min_umi_length,
+                                  no_umi=self.no_umi, metrics=dm)
+            for size, count in sizes.items():
+                self.family_sizes[size] = \
+                    self.family_sizes.get(size, 0) + count
+        out = bytearray()
+
+        def emit(data):
+            out.extend(len(data).to_bytes(4, "little") + data)
+            self.records_out += 1
+
+        for t in kept:
+            mi_str = t.mi.render() if t.mi is not None else None
+            for rec in t.all_records():
+                self._count_read_slow(rec, t.is_duplicate)
+                if self.remove_duplicates and t.is_duplicate:
+                    continue
+                emit(_record_with_flag_and_mi(rec, t.is_duplicate, mi_str,
+                                              self.assigned_tag))
+        for t in passthrough:
+            dm.total_templates += 1
+            dm.unique_templates += 1
+            for rec in t.all_records():
+                self._count_read_slow(rec, False)
+                emit(rec.data)
+        return [bytes(out)] if out else []
+
+    def _count_read_slow(self, rec, is_dup):
+        dm = self.dmetrics
+        dm.total_reads += 1
+        if is_dup:
+            dm.duplicate_reads += 1
+        sec = rec.flag & FLAG_SECONDARY
+        sup = rec.flag & FLAG_SUPPLEMENTARY
+        if sec:
+            dm.secondary_reads += 1
+        if sup:
+            dm.supplementary_reads += 1
+        if (sec or sup) and rec.find_tag(b"tc") is None:
+            dm.missing_tc_tag += 1
+
+    # ----------------------------------------------------------------- groups
+
+    def _process_groups(self, batch, tbounds, keys, gb):
+        from .dedup import (PICARD_MAX_SCORE_PER_READ, PICARD_MIN_BASE_QUALITY,
+                            PICARD_QC_FAIL_DISCOUNT, _family_key)
+        from ..io.bam import FLAG_DUPLICATE
+
+        dm = self.dmetrics
+        m = dm.filter
+        t_lo, t_hi = gb[0], gb[-1]
+        cat, weird = self._filter_codes_cached(batch, tbounds)
+        cat, weird = cat[t_lo:t_hi], weird[t_lo:t_hi]
+        flag = batch.flag
+        unmapped = (flag & FLAG_UNMAPPED) != 0
+        qcfail = (flag & FLAG_QC_FAIL) != 0
+        tc_off, _tc_len, _ = batch.tag_locs(b"tc")
+        cb_off, _cb_len, _ = batch.tag_locs_str(b"CB")
+
+        # per-template passthrough mask: has primaries and all unmapped
+        nT = len(tbounds) - 1
+        n_prim = np.zeros(nT, dtype=np.int64)
+        all_unm = np.ones(nT, dtype=bool)
+        for sel in (self._r1_of, self._r2_of, self._fr_of):
+            has = sel >= 0
+            n_prim += has
+            idx = np.where(has, sel, 0)
+            all_unm &= np.where(has, unmapped[idx], True)
+        passthrough_t = (n_prim > 0) & all_unm if self.include_unmapped \
+            else np.zeros(nT, dtype=bool)
+
+        scores = None  # computed lazily: slow-routed batches never need it
+        name_off = batch.data_off + 32
+        name_len = batch.l_read_name - 1
+
+        out = []
+        pending_rows = []
+        pending_flags = []
+        pending_values = []
+
+        def flush_pending():
+            if not pending_rows:
+                return
+            blob = self._rewrite(batch, pending_rows, pending_values,
+                                 pending_flags)
+            out.append(blob)
+            pending_rows.clear()
+            pending_flags.clear()
+            pending_values.clear()
+
+        for gi in range(len(gb) - 1):
+            g_ts = np.arange(gb[gi], gb[gi + 1])
+            cand = g_ts[~passthrough_t[g_ts]]
+            # CB barcodes present: the per-template path for the group
+            cb_present = False
+            for t in cand:
+                r = self._r1_of[t] if self._r1_of[t] >= 0 else (
+                    self._fr_of[t] if self._fr_of[t] >= 0 else self._r2_of[t])
+                if r >= 0 and cb_off[r] >= 0:
+                    cb_present = True
+                    break
+            if cb_present or self.no_umi \
+                    or weird[gb[gi] - t_lo:gb[gi + 1] - t_lo].any():
+                flush_pending()
+                out.extend(self._emit_slow_group(
+                    [self._materialize(batch, tbounds, t) for t in g_ts]))
+                continue
+
+            g_cat = cat[gb[gi] - t_lo:gb[gi + 1] - t_lo].copy()
+            g_cat[passthrough_t[g_ts]] = -1  # split off before filtering
+            n_cand = int((g_cat >= 0).sum())
+            m.total_templates += n_cand
+            for code, attr in ((_POOR, "poor_alignment"), (_NONPF, "non_pf"),
+                               (_NS, "ns_in_umi"), (_SHORT, "umi_too_short")):
+                c = int((g_cat == code).sum())
+                if c:
+                    setattr(m, attr, getattr(m, attr) + c)
+            kept_t = g_ts[g_cat == _ACCEPT]
+            m.accepted += len(kept_t)
+
+            is_dup = {}
+            if len(kept_t):
+                mids = self._assign_light(batch, kept_t)
+                # family grouping by (mi.id, mi.kind), name-ordered within
+                fams = {}
+                for k, t in enumerate(kept_t):
+                    fams.setdefault(_family_key(mids[k]), []).append((k, t))
+                for fam in fams.values():
+                    fam.sort(key=lambda kt: batch.buf[
+                        name_off[tbounds[kt[1]]]:
+                        name_off[tbounds[kt[1]]]
+                        + name_len[tbounds[kt[1]]]].tobytes())
+                    self.family_sizes[len(fam)] = \
+                        self.family_sizes.get(len(fam), 0) + 1
+                    if len(fam) == 1:
+                        best = 0
+                    else:
+                        if scores is None:
+                            scores = nb.qual_scores(
+                                batch, PICARD_MIN_BASE_QUALITY,
+                                PICARD_MAX_SCORE_PER_READ)
+                        best_score = None
+                        best = 0
+                        for j, (k, t) in enumerate(fam):
+                            s = 0
+                            for sel in (self._r1_of, self._r2_of,
+                                        self._fr_of):
+                                r = sel[t]
+                                if r >= 0:
+                                    rs = int(scores[r])
+                                    if qcfail[r]:
+                                        rs += PICARD_QC_FAIL_DISCOUNT
+                                    s += rs
+                            if best_score is None or s > best_score:
+                                best_score = s
+                                best = j
+                    for j, (k, t) in enumerate(fam):
+                        dup = j != best
+                        is_dup[int(t)] = dup
+                        dm.total_templates += 1
+                        if dup:
+                            dm.duplicate_templates += 1
+                        else:
+                            dm.unique_templates += 1
+
+                mi_strs = {int(t): mids[k].render()
+                           for k, t in enumerate(kept_t)}
+                for t in kept_t:
+                    t = int(t)
+                    dup = is_dup[t]
+                    mi_b = mi_strs[t].encode()
+                    rows = self._template_rows(batch, tbounds, t)
+                    self._count_rows(rows, dup, flag, tc_off)
+                    if self.remove_duplicates and dup:
+                        continue
+                    for r in rows:
+                        pending_rows.append(r)
+                        pending_values.append(mi_b)
+                        f = (int(flag[r]) & ~FLAG_DUPLICATE) \
+                            | (FLAG_DUPLICATE if dup else 0)
+                        pending_flags.append(f)
+
+            # pass-through templates: verbatim records after the kept ones
+            pts = g_ts[passthrough_t[g_ts]]
+            if len(pts):
+                flush_pending()
+                blob = bytearray()
+                for t in pts:
+                    dm.total_templates += 1
+                    dm.unique_templates += 1
+                    rows = self._template_rows(batch, tbounds, int(t))
+                    self._count_rows(rows, False, flag, tc_off)
+                    for r in rows:
+                        data = batch.buf[batch.data_off[r]:
+                                         batch.data_end[r]].tobytes()
+                        blob += len(data).to_bytes(4, "little") + data
+                        self.records_out += 1
+                if blob:
+                    out.append(bytes(blob))
+
+        flush_pending()
+        return out
+
+    def _template_rows(self, batch, tbounds, t):
+        """Record rows of template t in all_records() order: the picked
+        primaries (fragment, r1, r2), then the remaining rows in file
+        order."""
+        picks = [int(sel[t]) for sel in (self._fr_of, self._r1_of,
+                                         self._r2_of) if sel[t] >= 0]
+        pick_set = set(picks)
+        rows = picks[:]
+        flag = batch.flag
+        for r in range(int(tbounds[t]), int(tbounds[t + 1])):
+            if r in pick_set:
+                continue
+            f = int(flag[r])
+            if f & (FLAG_SECONDARY | FLAG_SUPPLEMENTARY) \
+                    or (f & FLAG_PAIRED and not f & FLAG_FIRST
+                        and not f & FLAG_LAST):
+                rows.append(r)
+            # a primary of a role already picked is dropped (classify keeps
+            # the last one of a role, the pick)
+        return rows
+
+    def _count_rows(self, rows, is_dup, flag, tc_off):
+        dm = self.dmetrics
+        dm.total_reads += len(rows)
+        if is_dup:
+            dm.duplicate_reads += len(rows)
+        for r in rows:
+            f = int(flag[r])
+            if f & (FLAG_SECONDARY | FLAG_SUPPLEMENTARY):
+                if f & FLAG_SECONDARY:
+                    dm.secondary_reads += 1
+                if f & FLAG_SUPPLEMENTARY:
+                    dm.supplementary_reads += 1
+                if tc_off[r] < 0:
+                    dm.missing_tc_tag += 1
+
+    def _rewrite(self, batch, rows, values, flags):
+        from ..io.bam import FLAG_DUPLICATE
+
+        try:
+            blob = nb.rewrite_tag_records(
+                batch, np.asarray(rows, dtype=np.int64), self.assigned_tag,
+                values, new_flags=np.asarray(flags, dtype=np.int32))
+        except ValueError:
+            from .dedup import _record_with_flag_and_mi
+
+            parts = []
+            for r, v, f in zip(rows, values, flags):
+                data = _record_with_flag_and_mi(
+                    batch.raw_record(int(r)), bool(f & FLAG_DUPLICATE),
+                    v.decode(), self.assigned_tag)
+                parts.append(len(data).to_bytes(4, "little") + data)
+            blob = b"".join(parts)
+        self.records_out += len(rows)
+        return blob
+
+    def result(self):
+        dm = self.dmetrics
+        dm.unique_reads = dm.total_reads - dm.duplicate_reads
+        return dm, dict(sorted(self.family_sizes.items()))

@@ -117,7 +117,7 @@ def _declare(lib):
     u8 = ctypes.c_uint8
     lib.fgumi_rewrite_tag_records.restype = lg
     lib.fgumi_rewrite_tag_records.argtypes = [p] * 4 + [lg, u8, u8, p, p, p,
-                                                        p]
+                                                        p, p]
     lib.fgumi_umi_neighbor_pairs.restype = lg
     lib.fgumi_umi_neighbor_pairs.argtypes = [p, lg, p, lg, lg, ctypes.c_int,
                                              p, p, lg]

@@ -416,12 +416,14 @@ def unclipped_5prime(batch):
     return out
 
 
-def rewrite_tag_records(batch, rows, tag: bytes, values):
+def rewrite_tag_records(batch, rows, tag: bytes, values, new_flags=None):
     """Wire blob for ``rows`` with ``tag`` replaced by per-row Z values.
 
     ``values``: a numpy S-array or a list of bytes, parallel to ``rows``.
-    Returns the contiguous block_size-prefixed wire blob with every prior
-    occurrence of the tag removed and the new value appended per record.
+    ``new_flags``: optional int32 FLAG per row (-1 keeps the record's; the
+    dedup engine's duplicate bit). Returns the contiguous
+    block_size-prefixed wire blob with every prior occurrence of the tag
+    removed and the new value appended per record.
     Raises ValueError on a malformed aux region (the caller takes the
     per-record Python editor, whose output is identical)."""
     lib = get_lib()
@@ -444,10 +446,14 @@ def rewrite_tag_records(batch, rows, tag: bytes, values):
     aux_off = np.ascontiguousarray(batch.aux_off[rows])
     cap = int(((data_end - data_off) + 8 + val_len).sum())
     out = np.empty(max(cap, 1), dtype=np.uint8)
+    flags_arg = 0
+    if new_flags is not None:
+        new_flags = np.ascontiguousarray(new_flags, np.int32)
+        flags_arg = _addr(new_flags)
     total = lib.fgumi_rewrite_tag_records(
         _addr(batch.buf), _addr(data_off), _addr(data_end), _addr(aux_off),
         k, tag[0], tag[1], _addr(val_blob), _addr(val_off), _addr(val_len),
-        _addr(out))
+        flags_arg, _addr(out))
     if total < 0:
         raise ValueError(f"malformed aux region in record {-(total + 1)}")
     return out[:total].tobytes()

@@ -1372,7 +1372,7 @@ long fgumi_rewrite_tag_records(
     const uint8_t* buf, const int64_t* data_off, const int64_t* data_end,
     const int64_t* aux_off, long n, uint8_t t1, uint8_t t2,
     const uint8_t* val_blob, const int64_t* val_off, const int32_t* val_len,
-    uint8_t* out) {
+    const int32_t* new_flag, uint8_t* out) {
   int64_t total = 0;
   for (long i = 0; i < n; ++i) {
     uint8_t* dst = out + total + 4;
@@ -1420,6 +1420,10 @@ long fgumi_rewrite_tag_records(
                 static_cast<size_t>(val_len[i]));
     w += 3 + val_len[i];
     dst[w++] = 0;
+    // dedup's duplicate flag: a row's new FLAG (-1 or no array: kept)
+    if (new_flag != nullptr && new_flag[i] >= 0) {
+      put_u16(dst + 14, static_cast<uint16_t>(new_flag[i]));
+    }
     put_u32(out + total, static_cast<uint32_t>(w));
     total += 4 + w;
   }

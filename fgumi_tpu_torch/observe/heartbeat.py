@@ -8,7 +8,7 @@ the fused chain's running stages), device activity, the records/s rate and
 ETA, device memory and RSS at INFO::
 
     heartbeat: +120s read=48 processed=47 written=45 q_in=2/4 q_out=1/8 \
-device(dispatches=47 in-flight=1) rate=39000/s eta=30s rss=812MB
+device(dispatches=47 in-flight=1 retries=0) rate=39000/s eta=30s rss=812MB
 
 Components publish live state by registering a gauge callable returning a
 ``{label: value}`` dict (:func:`register_gauge`). Enabled by ``--heartbeat
@@ -214,7 +214,8 @@ class Heartbeat:
         if snap.get("dispatches"):
             parts.append(
                 f"device(dispatches={snap['dispatches']}"
-                f" in-flight={snap['in_flight']})")
+                f" in-flight={snap['in_flight']}"
+                f" retries={snap.get('dispatch_retries', 0)})")
         # live device memory (None on --device cpu): logged and kept as
         # gauges, so the run report carries the figures the beat printed
         from .flight import device_memory_snapshot

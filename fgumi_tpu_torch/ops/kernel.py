@@ -66,9 +66,28 @@ device in a :class:`ResidentHandles` for the strand combine
 (:func:`duplex_combine_device`, K5); the CODEC combine runs through
 :func:`codec_combine_device` (K6).
 
+Resilience (the reference's ``device_retry_call`` and
+``_recover_segments``): every upload and launch of K1, K1-f, K1-r, K1-p2,
+K5 and K6 and every filter gather runs through :func:`device_retry_call`,
+a bounded retry with exponential backoff (``FGUMI_TPU_DEVICE_RETRIES``,
+default 3; ``FGUMI_TPU_DEVICE_BACKOFF_S``, default 0.05 s, doubling to at
+most 2 s). Only an injected fault is worth another attempt: a real CUDA
+error propagates at once (:class:`DeviceFailure`, exit 1), also where it
+surfaces later, at the fetch of an asynchronous launch's results. An
+out-of-memory (a real ``torch.cuda.OutOfMemoryError`` or an injected one)
+is kept in the wire dispatch's handle, and its resolve halves the batch at
+a family boundary and re-dispatches both halves on the same device and
+route, up to ``FGUMI_TPU_MAX_SPLITS`` (default 4) deep; a split K1-r
+batch joins its halves' resident arrays, so its strand combine runs on K5
+as an unsplit batch's does. Unlike the reference, nothing
+finishes a failed batch on a host engine: a retry budget that runs out or
+an out-of-memory that cannot split re-raises, and the command publishes no
+output.
+
 Telemetry: each launch (K1, K1-f, K1-r, K1-p2, K5, K6) is a
-``device.dispatch`` span (``what=`` the kernel, ``attempt=0``) around its
-upload and enqueue, and each wait for a result a ``device.fetch`` span. A
+``device.dispatch`` span (``what=`` the kernel, ``attempt=`` the retry
+attempt, 0 first) around its upload and enqueue, and each wait for a
+result a ``device.fetch`` span. A
 CUDA launch returns before the kernel runs, so the card's time shows up
 inside ``device.fetch``. Each resolved dispatch feeds the
 ``device.dispatch.{fetch_s,fetch_bytes,wall_s}`` histograms and the flight
@@ -76,6 +95,9 @@ recorder's ring. :data:`DEVICE_STATS` resolves the active command's
 telemetry scope (``observe/scope.py``).
 """
 
+import contextlib
+import logging
+import os
 import threading
 import time
 
@@ -88,6 +110,8 @@ from . import combine as C
 from . import cuda_kernel
 from . import wire as W
 from .tables import QualityTables, delta94
+
+log = logging.getLogger("fgumi_tpu_torch")
 
 #: ResidentHandles made and not yet released (a run ends with 0)
 LIVE_RESIDENTS = 0
@@ -123,6 +147,21 @@ class ResidentHandles:
             LIVE_RESIDENTS -= 1
         self.arrays = None
 
+    @classmethod
+    def join(cls, parts):
+        """One handle over the arrays of ``parts`` (the halves of a split
+        batch) joined along the family axis, in order. The parts are
+        released, and each of their arrays is dropped once it is copied."""
+        cols = [list(p.arrays) for p in parts]
+        for p in parts:
+            p.release()
+        arrays = []
+        for i in range(len(cols[0])):
+            arrays.append(torch.cat([c[i] for c in cols]))
+            for c in cols:
+                c[i] = None
+        return cls(arrays)
+
 
 class DeviceStats:
     """The device boundary of a run, for ``--stats`` (the reference's
@@ -150,6 +189,9 @@ class DeviceStats:
             self.in_flight = 0
             self.in_flight_peak = 0
             self.device_types = set()
+            # resilience: retried attempts and out-of-memory halvings
+            self.retries = 0
+            self.batch_splits = 0
             self.timeline = []
             self._t0 = time.monotonic()
 
@@ -181,6 +223,14 @@ class DeviceStats:
                     down_bytes=int(down_bytes),
                     fetch_wait_s=round(wait_s, 4))
 
+    def add_retry(self):
+        with self._lock:
+            self.retries += 1
+
+    def add_split(self):
+        with self._lock:
+            self.batch_splits += 1
+
     def add_fetch(self, down_bytes: int, wait_s: float):
         """A fetch outside a dispatch's own (the fused route's gathers)."""
         with self._lock:
@@ -189,13 +239,18 @@ class DeviceStats:
 
     def snapshot(self) -> dict:
         with self._lock:
-            return {"dispatches": self.dispatches,
-                    "devices": sorted(self.device_types),
-                    "fetch_wait_s": self.fetch_wait_s,
-                    "bytes_uploaded": self.bytes_uploaded,
-                    "bytes_fetched": self.bytes_fetched,
-                    "in_flight": self.in_flight,
-                    "in_flight_peak": self.in_flight_peak}
+            out = {"dispatches": self.dispatches,
+                   "devices": sorted(self.device_types),
+                   "fetch_wait_s": self.fetch_wait_s,
+                   "bytes_uploaded": self.bytes_uploaded,
+                   "bytes_fetched": self.bytes_fetched,
+                   "in_flight": self.in_flight,
+                   "in_flight_peak": self.in_flight_peak}
+            if self.retries:
+                out["dispatch_retries"] = self.retries
+            if self.batch_splits:
+                out["batch_splits"] = self.batch_splits
+            return out
 
     def timeline_snapshot(self) -> list:
         with self._lock:
@@ -207,7 +262,8 @@ class DeviceStats:
         with other._lock:
             state = {k: getattr(other, k) for k in (
                 "dispatches", "fetch_wait_s", "bytes_uploaded",
-                "bytes_fetched", "in_flight", "in_flight_peak", "_t0")}
+                "bytes_fetched", "in_flight", "in_flight_peak", "retries",
+                "batch_splits", "_t0")}
             state["device_types"] = set(other.device_types)
             state["timeline"] = [dict(t) for t in other.timeline]
         with self._lock:
@@ -224,6 +280,9 @@ class DeviceStats:
         if wall_s:
             parts.append(f"fetch-wait {s['fetch_wait_s'] / wall_s:.2%} of "
                          f"{wall_s:.2f}s wall")
+        if s.get("dispatch_retries") or s.get("batch_splits"):
+            parts.append(f"{s.get('dispatch_retries', 0)} retries, "
+                         f"{s.get('batch_splits', 0)} batch splits")
         return "; ".join(parts)
 
 
@@ -270,25 +329,127 @@ def _observe_dispatch(wall_s: float, fetch_s: float, up: int, down: int):
                 down_bytes=down)
 
 
-def _dispatch_span(what: str, work: int):
-    """The ``device.dispatch`` span of one launch of ``what``; the shared
-    no-op when ``work`` is 0 (the wrapper then launches nothing)."""
-    return span("device.dispatch", what=what, attempt=0) if work \
+def _dispatch_span(what: str, work: int, attempt: int = 0):
+    """The ``device.dispatch`` span of one launch attempt of ``what``; the
+    shared no-op when ``work`` is 0 (the wrapper then launches nothing)."""
+    return span("device.dispatch", what=what, attempt=attempt) if work \
         else NULL_SPAN
+
+
+# ---------------------------------------------------------------- resilience
+
+class DeviceFailure(RuntimeError):
+    """A CUDA error in a device dispatch (an illegal address, a failed
+    launch): the command exits 1 with this one line, which names the
+    dispatch and its attempts."""
+
+
+def _is_oom(exc) -> bool:
+    """Device memory exhausted (the batch is too big for what the card has
+    free): halve, do not retry, since the same shape fails the same way."""
+    from ..utils.faults import InjectedOom
+
+    return isinstance(exc, (torch.cuda.OutOfMemoryError, InjectedOom))
+
+
+def _is_transient(exc) -> bool:
+    """Whether another attempt may succeed. The JAX package retries XLA
+    statuses of a runtime hiccup (UNAVAILABLE, ABORTED, ...); a CUDA error
+    on this card is never one: it is sticky (an illegal address or a failed
+    launch leaves the context unusable, and every later call fails the
+    same way) or a programming error, so it propagates at once. Only an
+    injected fault other than an out-of-memory is retried; nothing on the
+    card dies with one, so nothing is uploaded again but the batch."""
+    from ..utils.faults import InjectedFault
+
+    return isinstance(exc, InjectedFault) and not _is_oom(exc)
+
+
+def _is_cuda_error(exc) -> bool:
+    """A real error of the CUDA runtime (not an out-of-memory)."""
+    accel = getattr(torch, "AcceleratorError", None)
+    if accel is not None and isinstance(exc, accel):
+        return True
+    return isinstance(exc, RuntimeError) and "CUDA error" in str(exc)
+
+
+def _first_line(exc) -> str:
+    lines = str(exc).strip().splitlines()
+    return lines[0] if lines else type(exc).__name__
+
+
+@contextlib.contextmanager
+def _fetch_failure(what: str):
+    """A launch returns before its kernel runs, so a kernel's CUDA error
+    (an illegal address) surfaces at the fetch of its results: raise it
+    there as a :class:`DeviceFailure` naming the dispatch."""
+    try:
+        yield
+    except BaseException as e:  # noqa: BLE001 - classified, re-raised
+        if _is_cuda_error(e) and not _is_oom(e):
+            raise DeviceFailure(
+                f"device {what} fetch failed: {type(e).__name__}: "
+                f"{_first_line(e)}") from e
+        raise
+
+
+def _retry_budget():
+    tries = max(int(os.environ.get("FGUMI_TPU_DEVICE_RETRIES", "3")), 0)
+    base = float(os.environ.get("FGUMI_TPU_DEVICE_BACKOFF_S", "0.05"))
+    return tries, base
+
+
+def device_retry_call(fn, what: str, launches: int = 1):
+    """Run ``fn()`` (uploads and launch) with a bounded exponential backoff
+    on transient errors. An out-of-memory and any other error re-raise at
+    once (an out-of-memory is answered by the batch split at resolve time;
+    a CUDA error becomes a :class:`DeviceFailure`). ``device.wedge`` fires
+    once before the loop and ``device.dispatch`` on every attempt; each
+    attempt is a ``device.dispatch`` span (``attempt=`` its index) unless
+    ``launches`` is 0."""
+    from ..utils import faults
+
+    faults.fire("device.wedge")
+    retries, delay = _retry_budget()
+    for attempt in range(retries + 1):
+        try:
+            faults.fire("device.dispatch")
+            with _dispatch_span(what, launches, attempt):
+                return fn()
+        except BaseException as e:  # noqa: BLE001 - classified below
+            if _is_cuda_error(e) and not _is_oom(e):
+                raise DeviceFailure(
+                    f"device {what} dispatch failed on attempt "
+                    f"{attempt + 1} of {retries + 1}: {type(e).__name__}: "
+                    f"{_first_line(e)}") from e
+            if _is_oom(e) or not _is_transient(e) or attempt >= retries:
+                raise
+            DEVICE_STATS.add_retry()
+            log.warning("device %s failed (%s: %s); retry %d/%d in %.2fs",
+                        what, type(e).__name__, e, attempt + 1, retries,
+                        delay)
+            time.sleep(delay)
+            delay = min(delay * 2, 2.0)
 
 
 class Dispatch:
     """One consensus dispatch in flight: the kernel's device outputs, the
     host clock when its upload began, and its :data:`DEVICE_STATS`
-    timeline slot."""
+    timeline slot; ``what`` names its kernel. A dispatch that ran out of
+    device memory holds the error (``failure``, nothing in flight) and the
+    K1-r thresholds it was launched with, for the split at resolve time."""
 
-    __slots__ = ("out", "t0", "slot", "up")
+    __slots__ = ("out", "what", "t0", "slot", "up", "failure", "thresholds")
 
-    def __init__(self, out, t0: float, slot: int, up: int):
+    def __init__(self, out, what: str, t0: float, slot: int, up: int,
+                 failure=None, thresholds=None):
         self.out = out
+        self.what = what
         self.t0 = t0
         self.slot = slot
         self.up = up
+        self.failure = failure
+        self.thresholds = thresholds
 
 
 class _Staging:
@@ -428,18 +589,19 @@ class ConsensusKernel:
             entry.event = event
         return out
 
-    def _begin(self, t0: float, out, *host) -> Dispatch:
-        """The handle of a dispatch whose upload began at ``t0`` (the host
-        tensors ``host`` went up)."""
+    def _begin(self, what: str, t0: float, out, *host) -> Dispatch:
+        """The handle of a ``what`` dispatch whose upload began at ``t0``
+        (the host tensors ``host`` went up)."""
         up = sum(t.numel() * t.element_size() for t in host)
-        return Dispatch(out, t0, DEVICE_STATS.begin(self.device, up), up)
+        return Dispatch(out, what, t0, DEVICE_STATS.begin(self.device, up),
+                        up)
 
     def _fetch(self, handle: Dispatch, tensors):
         """Fetch ``tensors`` of ``handle``'s dispatch to host numpy arrays
         and close its accounting: its span (upload to fetched) goes into
         ``device_s``, its fetch wait into :data:`DEVICE_STATS`."""
         t_fetch = time.monotonic()
-        with span("device.fetch") as sp:
+        with span("device.fetch") as sp, _fetch_failure(handle.what):
             host = [t.cpu().numpy() for t in tensors]
             down = sum(a.nbytes for a in host)
             sp.set(bytes=down)
@@ -486,26 +648,47 @@ class ConsensusKernel:
         if w is not None:
             wire, dict64 = w
             what = "K1" if resident_thresholds is None else "K1-r"
-            t0 = time.monotonic()
-            # a batch of no families launches nothing: no span either
-            with _dispatch_span(what, J):
+
+            def launch():
                 args = (self._to_device(wire, "wire"),
                         self._to_device(starts_t, "starts"),
                         self._to_device(dict64, "dict"), self._pre)
                 if resident_thresholds is not None:
-                    out = cuda_kernel.consensus_wire_resident(
+                    return cuda_kernel.consensus_wire_resident(
                         *args, *resident_thresholds)
-                else:
-                    out = cuda_kernel.consensus_wire_full(*args)
-            return self._begin(t0, out, wire, starts_t, dict64)
+                return cuda_kernel.consensus_wire_full(*args)
+
+            return self._dispatch(launch, what, J, (wire, starts_t, dict64),
+                                  resident_thresholds)
         cp, qsent = W.pack_codes2(codes_t, quals_t)
-        t0 = time.monotonic()
-        with _dispatch_span("K1-p2", J):
+
+        def launch_packed2():
             ct, et = self._device_tables()
-            out = cuda_kernel.consensus_wire_packed2(
+            return cuda_kernel.consensus_wire_packed2(
                 self._to_device(cp, "wire"), self._to_device(qsent, "quals"),
                 self._to_device(starts_t, "starts"), ct, et, self._pre)
-        return self._begin(t0, out, cp, qsent, starts_t)
+
+        return self._dispatch(launch_packed2, "K1-p2", J,
+                              (cp, qsent, starts_t), resident_thresholds)
+
+    def _dispatch(self, launch, what: str, J: int, host,
+                  thresholds=None) -> Dispatch:
+        """One dispatch of ``J`` families through :func:`device_retry_call`
+        (a batch of no families launches nothing: no span either). An
+        out-of-memory is kept in the returned handle, which its resolve
+        answers by halving the batch (where the reference's surfaces)."""
+        t0 = time.monotonic()
+        try:
+            out = device_retry_call(launch, what, J)
+        except BaseException as e:  # noqa: BLE001 - only an OOM is kept
+            if not _is_oom(e):
+                raise
+            # without its traceback: the frames would keep the attempt's
+            # device tensors alive while the halves allocate
+            return Dispatch(None, what, t0, -1, 0,
+                            failure=e.with_traceback(None),
+                            thresholds=thresholds)
+        return self._begin(what, t0, out, *host)
 
     def _emin(self, table: np.ndarray) -> torch.Tensor:
         """The filter's error-rate table as an int32 tensor on the device,
@@ -543,16 +726,18 @@ class ConsensusKernel:
             self.batch_shapes.append((*codes2d.shape, len(starts) - 1))
         starts_t = torch.from_numpy(np.asarray(starts, dtype=np.int32))
         lens_t = torch.from_numpy(np.ascontiguousarray(lens, dtype=np.int32))
-        t0 = time.monotonic()
-        with _dispatch_span("K1-f", len(starts) - 1):
-            out = cuda_kernel.consensus_wire_filter(
+
+        def launch():
+            return cuda_kernel.consensus_wire_filter(
                 self._to_device(wire, "wire"),
                 self._to_device(starts_t, "starts"),
                 self._to_device(dict64, "dict"), self._pre, mr, mq,
                 self._to_device(lens_t, "lens"), fparams.min_reads,
                 self._emin(fparams.emin_tab), fparams.min_base_q,
                 fparams.per_base)
-        return True, self._begin(t0, out, wire, starts_t, dict64, lens_t)
+
+        return True, self._dispatch(launch, "K1-f", len(starts) - 1,
+                                    (wire, starts_t, dict64, lens_t))
 
     def resolve_segments_wire_filtered(self, ticket, codes2d: np.ndarray,
                                        quals2d: np.ndarray,
@@ -566,6 +751,11 @@ class ConsensusKernel:
         if not fused:
             return ("columns",) + self.resolve_segments_wire(
                 handle, codes2d, quals2d, starts)
+        if handle.failure is not None:
+            # the reference's fused-route recovery: the halves go through
+            # K1 and come back as full columns for the host filter pass
+            return ("columns",) + self._recover_segments(
+                handle.failure, codes2d, quals2d, starts, 0)
         dev = handle.out
         stats, = self._fetch(handle, dev[:1])
         with self._lock:
@@ -581,8 +771,16 @@ class ConsensusKernel:
         with span("device.fetch", what="gather") as sp:
             idx = torch.from_numpy(np.ascontiguousarray(rows,
                                                         dtype=np.int64))
-            idx = idx.to(arrays[0].device)
-            out = [t[idx].cpu().numpy() for t in arrays]
+
+            def gather():
+                on_dev = idx.to(arrays[0].device)
+                return [t[on_dev] for t in arrays]
+
+            # plain tensor indexing, no kernel of the port: the attempts
+            # carry no device.dispatch span (the fetch span covers them)
+            got = device_retry_call(gather, "filter gather", launches=0)
+            with _fetch_failure("filter gather"):
+                out = [t.cpu().numpy() for t in got]
             sp.set(bytes=sum(a.nbytes for a in out))
         dt = time.monotonic() - t0
         with self._lock:
@@ -635,7 +833,8 @@ class ConsensusKernel:
 
     def resolve_segments_wire(self, dev_out, codes2d: np.ndarray,
                               quals2d: np.ndarray, starts: np.ndarray,
-                              want_extras: bool = False):
+                              want_extras: bool = False,
+                              _split_depth: int = 0):
         """Fetch + complete a dispatch: (winner, qual, depth, errors) (J, L)
         host arrays with every suspect recomputed by the f64 oracle.
 
@@ -643,8 +842,16 @@ class ConsensusKernel:
         of the positions the oracle patched, and ``resident``, the
         dispatch's :class:`ResidentHandles` (None unless it went through
         K1-r), which the caller releases. Without it a resident dispatch's
-        handles are released here."""
+        handles are released here. A dispatch that ran out of device memory
+        is completed by :meth:`_recover_segments`, with the same extras."""
+        if dev_out.failure is not None:
+            return self._recover_segments(dev_out.failure, codes2d, quals2d,
+                                          starts, _split_depth,
+                                          dev_out.thresholds, want_extras)
         dev = dev_out.out
+        # the handle no longer holds the outputs: the resident arrays live
+        # as long as their ResidentHandles, the rest until fetched
+        dev_out.out = None
         resident = None
         if len(dev) == 7:
             resident = ResidentHandles(dev[4:])
@@ -658,6 +865,78 @@ class ConsensusKernel:
         if resident is not None:
             resident.release()
         return out
+
+    def _recover_segments(self, exc, codes2d: np.ndarray,
+                          quals2d: np.ndarray, starts, split_depth: int,
+                          thresholds=None, want_extras: bool = False):
+        """Completion of a dispatch that ran out of device memory (the
+        reference's ``_recover_segments`` without its host-engine tail): a
+        batch of more than one family halves at a family boundary, both
+        halves are dispatched again on the card through the same route
+        (K1, K1-r with ``thresholds``, K1-p2 where a half has more than 63
+        distinct quals; a fused dispatch's halves through K1) and resolved,
+        both even if the first raises, and their columns are concatenated
+        in order. With ``want_extras`` the halves' extras are joined too:
+        their suspect masks, and their K1-r resident arrays into one
+        :class:`ResidentHandles` (None where a half has none: the packed2
+        route keeps none). At most ``FGUMI_TPU_MAX_SPLITS`` (default 4)
+        deep, and only where the layout is the wire's (L % 4 == 0);
+        otherwise the error re-raises and the command publishes nothing."""
+        starts = np.asarray(starts, dtype=np.int64)
+        J = len(starts) - 1
+        max_splits = int(os.environ.get("FGUMI_TPU_MAX_SPLITS", "4"))
+        if not (J > 1 and split_depth < max_splits
+                and codes2d.ndim == 2 and codes2d.shape[1] % 4 == 0):
+            raise exc
+        DEVICE_STATS.add_split()
+        mid = J // 2
+        log.warning("device batch exhausted memory (%s); halving %d "
+                    "segments into %d + %d and re-dispatching",
+                    _first_line(exc), J, mid, J - mid)
+        if self.device.type == "cuda":
+            # hand the allocator's cached blocks back before the halves
+            torch.cuda.empty_cache()
+        halves, first = [], None
+        for lo, hi in ((0, mid), (mid, J)):
+            r0, r1 = int(starts[lo]), int(starts[hi])
+            c, q = codes2d[r0:r1], quals2d[r0:r1]
+            sub = starts[lo:hi + 1] - r0
+            try:
+                halves.append((self.device_call_segments_wire(
+                    c, q, sub, resident_thresholds=thresholds), c, q, sub))
+            except BaseException as e:  # noqa: BLE001 - re-raised below
+                first = e
+                break
+        # resolve every half that went out, even past a failure: an
+        # unresolved one would hold its in-flight slot and its outputs
+        parts = []
+        for handle, c, q, sub in halves:
+            try:
+                parts.append(self.resolve_segments_wire(
+                    handle, c, q, sub, want_extras=True,
+                    _split_depth=split_depth + 1))
+            except BaseException as e:  # noqa: BLE001 - re-raised below
+                if first is None:
+                    first = e
+        del halves
+        residents = [p[4]["resident"] for p in parts]
+        if first is not None or not want_extras \
+                or any(r is None for r in residents):
+            for r in residents:
+                if r is not None:
+                    r.release()
+            residents = None
+        if first is not None:
+            raise first
+        out = tuple(np.concatenate([p[i] for p in parts], axis=0)
+                    for i in range(4))
+        if not want_extras:
+            return out
+        if residents is None:
+            return out + ({"suspect": None, "resident": None},)
+        return out + ({"suspect": np.concatenate(
+            [p[4]["suspect"] for p in parts], axis=0),
+            "resident": ResidentHandles.join(residents)},)
 
     def _complete_wire_columns(self, qs, wp, d16, e16, codes2d, quals2d,
                                starts):
@@ -772,12 +1051,15 @@ def duplex_combine_device(resident: ResidentHandles, a_idx, b_idx, lens):
     whose strands carry no oracle-patched position. A failed launch
     raises."""
     tb, tq, obs = resident.arrays
-    with _dispatch_span("K5", len(lens)):
-        idx = torch.from_numpy(np.stack([
-            np.asarray(a, dtype=np.int32) for a in (a_idx, b_idx, lens)]))
-        idx = idx.to(tb.device)
-        out = C.duplex_combine(tb, tq, obs, idx[0], idx[1], idx[2])
-    with span("device.fetch"):
+    host = torch.from_numpy(np.stack([
+        np.asarray(a, dtype=np.int32) for a in (a_idx, b_idx, lens)]))
+
+    def launch():
+        idx = host.to(tb.device)
+        return C.duplex_combine(tb, tq, obs, idx[0], idx[1], idx[2])
+
+    out = device_retry_call(launch, "K5", len(lens))
+    with span("device.fetch"), _fetch_failure("K5"):
         return tuple(t.cpu().numpy() for t in out)
 
 
@@ -804,18 +1086,22 @@ def codec_combine_device(device, ba, bb, qa, qb, da, db, ea, eb):
     if dev.type != "cuda":
         ops = [torch.from_numpy(np.ascontiguousarray(a, dtype=dt))
                for a, dt in zip(arrays, (np.uint8,) * 4 + (np.int32,) * 4)]
-        with _dispatch_span("K6", T):
-            return tuple(t.numpy() for t in C.codec_combine(*ops))
-    with _dispatch_span("K6", T):
-        staged = torch.empty(C.plane_bytes(T, C.CODEC_IN),
-                             dtype=torch.uint8, pin_memory=True)
-        for plane, a in zip(C.plane_views(staged, T, C.CODEC_IN), arrays):
-            plane.numpy()[:] = a
+        out = device_retry_call(lambda: C.codec_combine(*ops), "K6", T)
+        return tuple(t.numpy() for t in out)
+    staged = torch.empty(C.plane_bytes(T, C.CODEC_IN), dtype=torch.uint8,
+                         pin_memory=True)
+    for plane, a in zip(C.plane_views(staged, T, C.CODEC_IN), arrays):
+        plane.numpy()[:] = a
+
+    def launch():
         up = staged.to(dev, non_blocking=True)
-        out = torch.empty(C.plane_bytes(T, C.CODEC_OUT), dtype=torch.uint8,
+        res = torch.empty(C.plane_bytes(T, C.CODEC_OUT), dtype=torch.uint8,
                           device=dev)
-        C.codec_combine(*C.plane_views(up, T, C.CODEC_IN), out=out)
-    with span("device.fetch"):
+        C.codec_combine(*C.plane_views(up, T, C.CODEC_IN), out=res)
+        return res
+
+    out = device_retry_call(launch, "K6", T)
+    with span("device.fetch"), _fetch_failure("K6"):
         host = torch.empty(out.numel(), dtype=torch.uint8, pin_memory=True)
         host.copy_(out)
     return tuple(v.numpy() for v in C.plane_views(host, T, C.CODEC_OUT))

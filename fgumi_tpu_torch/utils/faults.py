@@ -27,11 +27,14 @@ Arm via the environment::
   1.0 the first ``count`` arrivals trigger, so threaded runs are
   deterministic too.
 
-The port fires the host points. The device points (``device.dispatch``,
-``device.wedge``, ``device.fetch``) and the kind ``oom`` test the JAX
-package's device retry, batch split and host fallback, which the port does
-not have yet: :func:`unported_spec` names them, and the CLI refuses such a
-spec (exit 2, "not yet ported") before any output is opened.
+The port fires the host points and the device points ``device.dispatch``
+(every attempt of a dispatch: the bounded retry, and with kind ``oom`` the
+batch split, of ``ops/kernel.py``) and ``device.wedge`` (once a dispatch,
+before its retry loop). ``device.fetch`` feeds the JAX package's result
+sentinel and ``serve.dispatch``/``serve.coalesce`` its job service, which
+the port does not have yet: :func:`unported_spec` names them, and the CLI
+refuses such a spec (exit 2, "not yet ported") before any output is
+opened.
 
 Faults are re-parsed whenever the variable's value changes, so tests can
 arm and disarm between in-process runs.
@@ -50,8 +53,9 @@ log = logging.getLogger("fgumi_tpu_torch")
 FAULT_POINTS = frozenset({
     "reader.decompress",   # BGZF/gzip reader raw-chunk ingest (io/bgzf.py)
     "pipeline.process",    # per-item process stage (pipeline.run_stages)
-    "device.dispatch",     # device upload + launch (not fired yet)
-    "device.wedge",        # dispatch entry, kind `hang` (not fired yet)
+    "device.dispatch",     # device upload + launch, every attempt
+                           # (ops/kernel.py device_retry_call)
+    "device.wedge",        # dispatch entry, once before the retry loop
     "device.fetch",        # fetched device results (not fired yet)
     "writer.compress",     # BGZF writer write/flush (io/bgzf.py)
     "native.batch",        # native batch-op entry (native/batch.py)
@@ -63,13 +67,11 @@ FAULT_POINTS = frozenset({
                            # (utils/governor.py)
 })
 
-#: Points and kinds a spec may name in the JAX package whose machinery the
-#: port lacks (the device retry loop, the batch split, the sentinel, the
-#: job service): the CLI refuses them as not yet ported
-UNPORTED_POINTS = frozenset({"device.dispatch", "device.wedge",
-                             "device.fetch", "serve.dispatch",
+#: Points a spec may name in the JAX package whose machinery the port
+#: lacks (the result sentinel, the job service): the CLI refuses them as
+#: not yet ported
+UNPORTED_POINTS = frozenset({"device.fetch", "serve.dispatch",
                              "serve.coalesce"})
-UNPORTED_KINDS = frozenset({"oom"})
 
 KINDS = frozenset({"raise", "hang", "corrupt-bytes", "corrupt-result",
                    "oom", "enospc"})
@@ -80,8 +82,10 @@ class InjectedFault(RuntimeError):
 
 
 class InjectedOom(InjectedFault):
-    """Injected out-of-memory; message carries RESOURCE_EXHAUSTED so the
-    device retry path classifies it exactly like a real XLA OOM."""
+    """Injected out-of-memory (the reference's message, which begins
+    ``RESOURCE_EXHAUSTED:``): the device retry path classifies it as it
+    does a real ``torch.cuda.OutOfMemoryError``, so a dispatch halves its
+    batch; at a host point it exits 3 as every injected fault does."""
 
 
 class _Fault:
@@ -255,15 +259,15 @@ def snapshot():
 
 
 def unported_spec(env: str = None):
-    """The first ``point:kind`` of ``FGUMI_TPU_FAULT`` (or ``env``) that the
-    port cannot fire (:data:`UNPORTED_POINTS`, :data:`UNPORTED_KINDS`), or
-    None. A malformed spec is left to :func:`fire`'s loud parse."""
+    """The first ``point:kind`` of ``FGUMI_TPU_FAULT`` (or ``env``) whose
+    point the port cannot fire (:data:`UNPORTED_POINTS`), or None. A
+    malformed spec is left to :func:`fire`'s loud parse."""
     if env is None:
         env = os.environ.get("FGUMI_TPU_FAULT", "")
     for spec in env.split(","):
         parts = spec.strip().split(":")
         if len(parts) < 2:
             continue
-        if parts[0] in UNPORTED_POINTS or parts[1] in UNPORTED_KINDS:
+        if parts[0] in UNPORTED_POINTS:
             return f"{parts[0]}:{parts[1]}"
     return None

@@ -38,7 +38,9 @@ packed2 route), ``group`` (both engines), and ``extract``, ``sort`` and
 about 2,400 distinct UMIs so the group stage reaches K4), ``duplex``
 (both engines, and ``--device-filter`` against ``duplex | filter``; the
 fast engine through K1-r and K5) and ``codec`` (both engines, K1 and K6)
-on the card.
+on the card; ``dedup`` (both engines, K4 once a position group) against
+``--device cpu``, and an injected out-of-memory on the K1 and K1-f routes
+(one halving, both halves launched, the clean run's records).
 
 Tolerances: depth and errors exact; winner and qual (K1), and the stats
 columns 0-5 and the masked columns within the read length (K1-f), exact
@@ -951,6 +953,87 @@ def test_fast_group_entry_point_on_cuda(cuda_dev, tmp_path, strategy):
 def _records(path):
     with BamReader(str(path)) as r:
         return [rec.data for rec in r]
+
+
+@pytest.mark.parametrize("engine", [[], ["--classic"]],
+                         ids=["batch", "classic"])
+def test_dedup_entry_point_on_cuda(cuda_dev, tmp_path, engine):
+    """``dedup`` on the card: two amplicon positions of more than 1,024
+    distinct UMIs, so K4 launched once a position group; records and the
+    ``-m``/``-H`` files equal --device cpu's."""
+    import chip_smoke
+
+    inp = str(tmp_path / "amp.bam")
+    chip_smoke.amplicon_bam(inp, positions=2, molecules=900, copies=3,
+                            read_length=60, seed=6)
+    files = {}
+    for dev in ("cuda", "cpu"):
+        _run_cli(tmp_path, "dedup", "-i", inp, "-o", f"d.{dev}.bam",
+                 "--device", dev, "-m", f"m.{dev}.tsv", "-H", f"h.{dev}.tsv",
+                 "--stats-json", f"d.{dev}.json", *engine)
+        files[dev] = (_records(tmp_path / f"d.{dev}.bam"),
+                      (tmp_path / f"m.{dev}.tsv").read_bytes(),
+                      (tmp_path / f"h.{dev}.tsv").read_bytes())
+    assert files["cuda"][0] and files["cuda"] == files["cpu"]
+    stats = json.loads((tmp_path / "d.cuda.json").read_text())
+    assert stats["launches"]["umi_hamming"] == 2
+    assert stats["device_span"]["largest"][0] >= 1024
+
+
+@pytest.mark.parametrize("flags", [[], ["--device-filter"]],
+                         ids=["k1", "k1f"])
+def test_injected_oom_halves_on_cuda(cuda_dev, tmp_path, flags):
+    """``device.dispatch:oom:1.0:1`` on the card: the first batch halves
+    (one split), both halves launch, and the records equal the clean
+    run's."""
+    _run_cli(tmp_path, "simulate", "grouped-reads", "-o", "in.bam",
+             "--num-families", "300", "--family-size-distribution",
+             "longtail", "--read-length", "150")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for name, fault in (("clean", None), ("oom", "device.dispatch:oom:1.0:1")):
+        env = dict(os.environ, PYTHONPATH=root)
+        if fault:
+            env["FGUMI_TPU_FAULT"] = fault
+        subprocess.run([sys.executable, "-m", "fgumi_tpu_torch", "simplex",
+                        "-i", "in.bam", "-o", f"{name}.bam", "--min-reads",
+                        "1", "--stats-json", f"{name}.json", *flags],
+                       check=True, env=env, cwd=str(tmp_path), timeout=600)
+    clean, oom = (json.loads((tmp_path / f"{n}.json").read_text())
+                  for n in ("clean", "oom"))
+    assert oom["device_stats"]["batch_splits"] == 1
+    launched = sum(oom["launches"].values())
+    assert launched == sum(clean["launches"].values()) + 1
+    # the halves go through K1 on either route
+    assert oom["launches"]["consensus_wire_full"] >= 2
+    assert _records(tmp_path / "oom.bam") == _records(tmp_path / "clean.bam")
+
+
+def test_injected_oom_duplex_joins_residents_on_cuda(cuda_dev, tmp_path):
+    """``device.dispatch:oom:1.0:1`` on a duplex K1-r batch: its halves'
+    resident arrays are joined on the card, so the strand combine runs on
+    K5 over as many rows as in the clean run, and the records are equal."""
+    _run_cli(tmp_path, "simulate", "duplex-reads", "-o", "in.bam",
+             "--num-molecules", "2000", "--reads-per-strand", "3",
+             "--read-length", "100", "--seed", "4")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for name, fault in (("clean", None), ("oom", "device.dispatch:oom:1.0:1")):
+        env = dict(os.environ, PYTHONPATH=root)
+        if fault:
+            env["FGUMI_TPU_FAULT"] = fault
+        subprocess.run([sys.executable, "-m", "fgumi_tpu_torch", "duplex",
+                        "-i", "in.bam", "-o", f"{name}.bam", "--stats-json",
+                        f"{name}.json"],
+                       check=True, env=env, cwd=str(tmp_path), timeout=600)
+    clean, oom = (json.loads((tmp_path / f"{n}.json").read_text())
+                  for n in ("clean", "oom"))
+    assert oom["device_stats"]["batch_splits"] == 1
+    assert oom["launches"]["consensus_wire_resident"] == \
+        clean["launches"]["consensus_wire_resident"] + 1
+    assert oom["launches"]["duplex_combine"] == \
+        clean["launches"]["duplex_combine"] > 0
+    assert oom["combine_device_rows"] == clean["combine_device_rows"] > 0
+    assert oom["combine_host_rows"] == clean["combine_host_rows"]
+    assert _records(tmp_path / "oom.bam") == _records(tmp_path / "clean.bam")
 
 
 _PIPE = ["-r", "8M+T", "+T", "--sample", "s", "--library", "l"]

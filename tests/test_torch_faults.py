@@ -8,8 +8,10 @@ contract of the port's global options, held against the JAX package.
 - Chaos cases through ``fgumi_tpu.cli.main`` and the port's ``main(...
   --device cpu)`` give the same exit code and publish no output: 3 from an
   injected raise, 4 from ``enospc`` at a sort spill, 5 from corrupt bytes
-  under ``--audit-output``; the device points and kind ``oom`` exit 2 on
-  the port ("not yet ported") before any output is opened.
+  under ``--audit-output``; a retried ``device.dispatch`` raise and a
+  ``device.wedge`` hang exit 0 with the JAX CLI's records, kind ``oom`` at
+  a host point exits 3 on both; ``device.fetch`` and the ``serve.*`` points
+  exit 2 on the port ("not yet ported") before any output is opened.
 - Every global option of the reference is accepted; ``--profile``,
   ``--mesh``, ``--xla-profile`` and ``--shape-buckets`` exit 2 with one
   line, never argparse's usage error.
@@ -140,11 +142,13 @@ def test_bad_spec_is_loud(monkeypatch, spec, err):
 
 
 @pytest.mark.parametrize("spec,unported", [
-    ("device.dispatch:raise:1.0", "device.dispatch:raise"),
+    ("device.dispatch:raise:1.0", None),
     ("pipeline.process:raise:1.0,device.fetch:corrupt-result:1.0:1",
      "device.fetch:corrupt-result"),
-    ("reader.decompress:oom:1.0", "reader.decompress:oom"),
+    ("reader.decompress:oom:1.0", None),
     ("serve.dispatch:raise:1.0", "serve.dispatch:raise"),
+    ("device.wedge:hang:1.0:1,serve.coalesce:raise:1.0",
+     "serve.coalesce:raise"),
     ("sort.spill:enospc:1.0:1", None),
     ("", None)])
 def test_unported_spec(spec, unported):
@@ -271,10 +275,42 @@ def test_audit_skipped_without_atomic_commit(tmp_path, monkeypatch, inputs):
     assert out.exists()
 
 
+@pytest.mark.parametrize("spec,rc", [
+    ("device.dispatch:raise:1.0:1", 0), ("device.wedge:hang:1.0:1", 0),
+    ("reader.decompress:oom:1.0:1", 3), ("pipeline.process:oom:0.5", 3)])
+def test_ported_fault_matches_jax(tmp_path, monkeypatch, inputs, spec, rc):
+    """The device points and kind ``oom``, once refused, now fire: a
+    retried dispatch and a wedge that does not hang exit 0 with the JAX
+    CLI's records; an out-of-memory at a host point exits 3 on both, with
+    nothing published."""
+    from fgumi_tpu_torch.io.bam import BamReader
+
+    monkeypatch.setenv("FGUMI_TPU_FAULT", spec)
+    monkeypatch.setenv("FGUMI_TPU_FAULT_HANG_S", "0")
+    recs = {}
+    for name, main, extra in (("jax", jax_cli.main, []),
+                              ("port", port_cli.main, ["--device", "cpu"])):
+        port_faults.reset()
+        jax_faults.reset()
+        d = tmp_path / name
+        d.mkdir()
+        out = str(d / "out.bam")
+        assert main(_argv("simplex", inputs, out) + extra) == rc, name
+        if rc:
+            assert os.listdir(d) == [], (name, os.listdir(d))
+            continue
+        with BamReader(out) as r:
+            recs[name] = [rec.data for rec in r]
+    if not rc:
+        assert recs["port"] and recs["port"] == recs["jax"]
+        # the port's point fired (the JAX package's router may send so small
+        # an input to its host engine, where no device point fires)
+        assert port_faults.snapshot() == {spec.split(":")[0]: 1}
+
+
 @pytest.mark.parametrize("spec", [
-    "device.dispatch:raise:1.0:1", "device.wedge:hang:1.0:1",
-    "device.fetch:corrupt-result:1.0:1", "reader.decompress:oom:1.0:1",
-    "pipeline.process:oom:0.5"])
+    "device.fetch:corrupt-result:1.0:1", "serve.dispatch:raise:1.0:1",
+    "serve.coalesce:hang:1.0:1"])
 def test_unported_fault_refused_before_output(tmp_path, monkeypatch, caplog,
                                               inputs, spec):
     monkeypatch.setenv("FGUMI_TPU_FAULT", spec)

@@ -481,7 +481,7 @@ def test_heartbeat_reads_device_stats_under_lock(caplog):
         DEVICE_STATS.end(slot, 32, 0.0)
     line = [r.message for r in caplog.records
             if r.message.startswith("heartbeat:")][-1]
-    assert "device(dispatches=1 in-flight=1)" in line
+    assert "device(dispatches=1 in-flight=1 retries=0)" in line
     # --device cpu never initialises CUDA: no device-memory column
     assert "devmem=" not in line
     assert flight.device_memory_snapshot() is None
