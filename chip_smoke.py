@@ -5,6 +5,10 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
+(``python3 chip_smoke.py --phase mapped`` runs the mapped phase below alone:
+its inputs and ``fixed5_1M``, the ``fixed5_1M --device-filter`` run it
+compares with, then K1-f and K1 at those runs' batches and the last lines.)
+
 Phases (any failed check exits nonzero; nothing is caught and passed over):
 
 1. setup: the card's name and power limit (nvidia-smi); whether the card
@@ -211,6 +215,29 @@ Phases (any failed check exits nonzero; nothing is caught and passed over):
      (``torch.cuda.set_per_process_memory_fraction``) of 0.65-0.95 of the
      largest batch's device bytes (its upload and its K1 outputs), one of which
      must halve on the real error, exit 0 and write the clean records;
+   then the ``mapped`` phase, the front half of the reference's documented
+   workflow, one run at a time so that no wall shares the host with another
+   run of this script: ``correct_1M`` (the port's ``simulate correct-reads
+   -n 1000000 --num-umis 1000 -u 8 -l 100 --max-errors 2 --seed 52``;
+   ``correct -U <list> -m -r`` on the batch engine and then ``--classic``,
+   records, rejects and metrics identical; the share of reads whose
+   corrected UMI is the truth table's), then ``mapped_chain_400k``
+   (``simulate fastq-reads --num-families 40000 --family-size 5
+   --read-length 100 --includelist <that list> --seed 53``,
+   then ``extract -r 8M+T +T``, ``correct -U <list>``, ``fastq``, a stand-in
+   aligner written here (:func:`stand_in_align`: ten families a position
+   over four contigs, R1 forward, R2 reverse, a quarter soft-clipped, some
+   supplementary records and unmapped mates; a query-grouped mapped BAM),
+   ``zipper`` on both engines (identical), ``sort --order
+   template-coordinate`` of the whole and of each half, ``merge`` of the
+   sorted halves (equal to the sorted whole), ``group -s adjacency``,
+   ``simplex --min-reads 1`` on ``cuda`` (K1 launched) and then on ``cpu``
+   (nothing launched), identical, and ``filter -M 1``; a ``mapped``
+   line with each step's wall and records/s), then ``device_filter_env``:
+   ``fixed5_1M`` under ``FGUMI_TPU_DEVICE_FILTER=1`` without
+   ``--device-filter`` and ``=0`` with it, each with the ``fixed5_1M_fused``
+   run's records and launches (K1-f: ``=0`` requests nothing, and the flag
+   keeps the fused filter on the card);
 4. kernels at the main-path shapes the runs reported (the fast runs' largest
    batch; the simplex stage's largest batch of each ``cuda`` pipeline run:
    K1 on fused and ``--no-fuse`` ``pipeline_400k`` and on
@@ -245,9 +272,10 @@ Phases (any failed check exits nonzero; nothing is caught and passed over):
    ``pipeline_400k_device_filter``, K4 ``amplicon_group_adjacency_fast``,
    ``pipeline_k4_50k_fused`` and ``amplicon_dedup_adjacency_fast``, K1-r
    and K5 ``duplex_240k``, K1 and K6
-   ``codec_320k``, K1-p2 ``many_quals_20k``; each entry also with
-   ``staged_path`` and ``staged_launches``, the staged run of that path
-   and its count; each entry with its registers
+   ``codec_320k``, K1-p2 ``many_quals_20k``, K1 ``mapped_chain_400k`` at
+   that run's largest simplex batch; an entry whose path has a staged run
+   also with ``staged_path`` and ``staged_launches``, that run and its
+   count; each entry with its registers
    and launch geometry; K1-r's also with ``uniform_ms``, its time at the
    uniform batch, and K1-p2's with ``fixed5_p2_ms``, ``fixed5_p2_plain_ms``
    and ``fixed5_p2_bound_ms``), the nvidia-smi line and, last, the device
@@ -644,6 +672,26 @@ def main_path_batch(shape, longtail: bool, seed: int):
     lens = (L - np.random.default_rng(seed).integers(0, 4, size=J)).astype(
         np.int32)
     return codes, quals, starts, lens
+
+
+def exact_rows_batch(shape, seed: int):
+    """A batch of exactly N rows in J consensus reads (N // J rows each,
+    one more in the first N % J) at L columns, ragged lengths up to L: the
+    shape of a run whose families vary in size."""
+    N, L, J = shape
+    sizes = np.full(J, N // J, dtype=np.int64)
+    sizes[:N % J] += 1
+    codes, quals, starts = family_batch(sizes, L, seed)
+    return codes, quals, starts
+
+
+def check_k1_mapped(chain, dev):
+    """K1 checked and timed at ``mapped_chain_400k``'s largest simplex
+    batch, its rows exactly."""
+    codes, quals, starts = exact_rows_batch(chain["largest_batch"], seed=17)
+    return check_wire_kernel(
+        f"main_k1_mapped_{len(starts) - 1}seg_{codes.shape[0]}rows_x"
+        f"{codes.shape[1]}", codes, quals, starts, dev, timed=True)
 
 
 def uniform_batch(shape, seed: int):
@@ -1650,20 +1698,23 @@ def packed2_phase_test_shapes(dev):
 
 def kernel_phase_main_path(dev, shapes, k4_shapes, pipeline_shapes):
     """K1 and K1-f at the fast engine's largest batch of each main-path
-    run and at the simplex stage's largest batch of each ``cuda`` pipeline
-    run (``pipeline_shapes``: {key: (kernel, shape)}), K4 at each of
-    ``k4_shapes`` ({key: (n, m, L)}), checked and timed."""
+    run in ``shapes`` ({case: {kind: shape}}) and at the simplex stage's
+    largest batch of each ``cuda`` pipeline run (``pipeline_shapes``:
+    {key: (kernel, shape)}), K4 at each of ``k4_shapes`` ({key: (n, m,
+    L)}), checked and timed."""
     out = {}
     for key, (n, m, L) in k4_shapes.items():
         a, b = hamming_mats(n, m, L, seed=n + m, alphabet=b"ACGT")
         out[key] = check_hamming_kernel(f"main_{key}_{n}x{m}x{L}", a, b, dev,
                                         timed=True)
     for key, kernel, shape, longtail in (
-            ("k1_fixed", "full", shapes["fixed5_1M"]["fast"], False),
-            ("k1_longtail", "full", shapes["longtail_200k"]["fast"], True),
-            ("k1f_fixed", "filter", shapes["fixed5_1M"]["fused"], False),
-            ("k1f_longtail", "filter", shapes["longtail_200k"]["fused"],
-             True),
+            *((key, kernel, shapes[case][kind], longtail)
+              for key, kernel, case, kind, longtail in (
+                  ("k1_fixed", "full", "fixed5_1M", "fast", False),
+                  ("k1_longtail", "full", "longtail_200k", "fast", True),
+                  ("k1f_fixed", "filter", "fixed5_1M", "fused", False),
+                  ("k1f_longtail", "filter", "longtail_200k", "fused", True))
+              if kind in shapes.get(case, {})),
             *((key, kernel, shape, False)
               for key, (kernel, shape) in pipeline_shapes.items())):
         codes, quals, starts, lens = main_path_batch(shape, longtail,
@@ -3436,6 +3487,343 @@ def resilience_phase(paths, work, e2e, duplexes):
     return results
 
 
+# the mapped phase: the front half of the reference's documented workflow
+# on the port's host commands (extract => correct => fastq => aligner =>
+# zipper => sort/merge => group => simplex => filter), a stand-in aligner
+# in this script in the aligner's place; and correct at a sample's size
+CORRECT_SIM = ["-n", "1000000", "--num-umis", "1000", "-u", "8", "-l", "100",
+               "--max-errors", "2", "--seed", "52"]
+MAPPED_SIM = ["--num-families", "40000", "--family-size", "5",
+              "--read-length", "100", "--seed", "53"]
+# the stand-in aligner's reference: four contigs, ten families a position
+# (a capture panel's targets), each pair's insert that of simulate
+# fastq-reads (1.8 read lengths)
+MAPPED_CONTIGS = 4
+MAPPED_CONTIG_LEN = 1_000_000
+FAMILIES_PER_POSITION = 10
+
+
+def _cli_wall(argv, env=None) -> float:
+    """One run of the port's CLI in this process: its wall (exit 0
+    required); ``env`` is set around it."""
+    from fgumi_tpu_torch import cli
+
+    old = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    try:
+        t0 = time.monotonic()
+        rc = cli.main(argv)
+        wall = time.monotonic() - t0
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    check(rc == 0, f"{' '.join(argv[:1])} {' '.join(argv[1:])} exited {rc}")
+    return wall
+
+
+def stand_in_align(fastq_path, out_bam, read_length: int = 100) -> int:
+    """A stand-in aligner: reads the interleaved FASTQ of ``fastq`` (names
+    ``fam{f}:r{r}/1`` and ``/2``) and writes a query-grouped mapped BAM in
+    its order. Family f maps to position group f // 10 on one of four
+    contigs: R1 forward at the group's start, R2 reverse at the end of a
+    180-base insert (the simulator's), 100M, a quarter of either read
+    soft-clipped 5 bases at its outer end (its unclipped 5' unchanged);
+    R2 unmapped in one template of 97 families, and a supplementary R1
+    (60S40M on the next contig) in one of 53. Returns records written."""
+    from fgumi_tpu_torch.constants import reverse_complement_bytes
+    from fgumi_tpu_torch.io.bam import BamHeader, BamWriter, RecordBuilder
+
+    names = [f"chr{c + 1}" for c in range(MAPPED_CONTIGS)]
+    header = BamHeader(
+        text="@HD\tVN:1.6\tSO:unsorted\tGO:query\n"
+             + "".join(f"@SQ\tSN:{n}\tLN:{MAPPED_CONTIG_LEN}\n"
+                       for n in names)
+             + "@PG\tID:stand-in\tPN:chip_smoke.stand_in_align\n",
+        ref_names=names, ref_lengths=[MAPPED_CONTIG_LEN] * MAPPED_CONTIGS)
+    insert = int(read_length * 1.8)
+    n = 0
+    with open(fastq_path, "rb") as f, BamWriter(out_bam, header) as w:
+        lines = iter(f)
+        for head1 in lines:
+            seq1, _, q1 = next(lines)[:-1], next(lines), next(lines)[:-1]
+            head2 = next(lines)
+            seq2, _, q2 = next(lines)[:-1], next(lines), next(lines)[:-1]
+            name = head1[1:-1].rsplit(b"/", 1)[0]
+            check(head2[1:-1].rsplit(b"/", 1)[0] == name,
+                  f"stand-in aligner: {name!r} has no adjacent mate")
+            fam_s, r_s = name.decode().split(":")
+            fam, r = int(fam_s[3:]), int(r_s[1:])
+            g = fam // FAMILIES_PER_POSITION
+            tid = g % MAPPED_CONTIGS
+            base = 1000 + (g // MAPPED_CONTIGS) * 600
+            quals1 = np.frombuffer(q1, np.uint8) - 33
+            quals2 = np.frombuffer(q2, np.uint8) - 33
+            r2_unmapped = fam % 97 == 5 and r == 0
+            supp = fam % 53 == 7 and r == 1
+            p2 = base + insert - read_length
+            clip1 = r % 4 == 3
+            cig1 = [("S", 5), ("M", read_length - 5)] if clip1 \
+                else [("M", read_length)]
+            f1 = 0x1 | 0x40 | (0x8 if r2_unmapped else 0x2 | 0x20)
+            b = RecordBuilder().start_mapped(
+                name, f1, tid, base + (5 if clip1 else 0), 60, cig1, seq1,
+                quals1, tid, base if r2_unmapped else p2,
+                0 if r2_unmapped else insert)
+            b.tag_int(b"AS", read_length - 5 * clip1 - (r % 3))
+            b.tag_int(b"NM", r % 3)
+            if fam % 3 == 0:
+                b.tag_int(b"XS", 20 + r)
+            w.write_record_bytes(b.finish())
+            n += 1
+            if supp:
+                b = RecordBuilder().start_mapped(
+                    name, 0x1 | 0x40 | 0x800 | 0x20,
+                    (tid + 1) % MAPPED_CONTIGS, base + 250, 30,
+                    [("S", 60), ("M", read_length - 60)], seq1, quals1,
+                    tid, p2, 0)
+                b.tag_int(b"AS", read_length - 60)
+                w.write_record_bytes(b.finish())
+                n += 1
+            if r2_unmapped:
+                b = RecordBuilder().start_unmapped(name, 0x1 | 0x80 | 0x4,
+                                                   seq2, quals2)
+            else:
+                clip2 = r % 4 == 1
+                cig2 = [("M", read_length - 5), ("S", 5)] if clip2 \
+                    else [("M", read_length)]
+                b = RecordBuilder().start_mapped(
+                    name, 0x1 | 0x2 | 0x80 | 0x10, tid, p2, 60, cig2,
+                    reverse_complement_bytes(seq2), quals2[::-1], tid,
+                    base + (5 if clip1 else 0), -insert)
+                b.tag_int(b"AS", read_length - 5 * clip2)
+                b.tag_int(b"NM", 0)
+            w.write_record_bytes(b.finish())
+            n += 1
+    return n
+
+
+def split_at_template(src, dst_a, dst_b) -> int:
+    """``src`` in two consecutive halves, cut between two templates;
+    returns the records of the first."""
+    from fgumi_tpu_torch.io.bam import BamReader, BamWriter
+
+    with BamReader(src) as r:
+        header, recs = r.header, [(rec.name, rec.data) for rec in r]
+    cut = len(recs) // 2
+    while 0 < cut < len(recs) and recs[cut][0] == recs[cut - 1][0]:
+        cut += 1
+    for path, part in ((dst_a, recs[:cut]), (dst_b, recs[cut:])):
+        with BamWriter(path, header) as w:
+            for _, data in part:
+                w.write_record_bytes(data)
+    return cut
+
+
+def _tag_values(path, tag: bytes) -> dict:
+    """{read name: the tag's string value} of every record of ``path``
+    (the last record of a name wins)."""
+    from fgumi_tpu_torch.io.bam import BamReader
+
+    with BamReader(path) as r:
+        return {rec.name: rec.get_str(tag) for rec in r}
+
+
+def correct_1m_case(paths, work) -> dict:
+    """``correct -U <list> -m -r`` on ``correct_1M``, the batch engine and
+    then ``--classic``: records, rejects and metrics identical; the share
+    of reads whose corrected UMI is the true one (the generator's truth
+    table). Prints the ``mapped`` line."""
+    inp, wl, _ = paths["correct_1M"]
+    runs, walls = {}, {}
+    for engine in ("fast", "classic"):
+        runs[engine] = out = [os.path.join(work, f"correct_1M.{engine}.{x}")
+                              for x in ("bam", "rej.bam", "tsv")]
+        walls[engine] = _cli_wall(
+            ["correct", "-i", inp, "-o", out[0], "-r", out[1], "-m", out[2],
+             "-U", wl] + (["--classic"] if engine == "classic" else []))
+    fast, classic = runs["fast"], runs["classic"]
+    kept, rejected = records(fast[0]), records(fast[1])
+    check(kept == records(classic[0]),
+          "correct_1M: fast and --classic records differ")
+    check(rejected == records(classic[1]),
+          "correct_1M: fast and --classic rejects differ")
+    with open(fast[2], "rb") as a, open(classic[2], "rb") as b:
+        check(a.read() == b.read(),
+              "correct_1M: fast and --classic metrics differ")
+    true_umi = {}
+    with open(paths["correct_1M"][2]) as f:
+        next(f)
+        for line in f:
+            name, umi, _, _ = line.split("\t")
+            true_umi[name.encode()] = umi
+    got = _tag_values(fast[0], b"RX")
+    right = sum(1 for name, umi in got.items() if true_umi[name] == umi)
+    n = len(true_umi)
+    check(len(kept) + len(rejected) == n,
+          f"correct_1M: {len(kept)} kept + {len(rejected)} rejected != {n}")
+    summary = {"case": "correct_1M", "reads": n, "kept": len(kept),
+               "rejected": len(rejected), "kept_true_umi": right,
+               "true_umi_share": right / n,
+               "kept_true_share": right / max(len(kept), 1),
+               "fast_wall_s": walls["fast"],
+               "fast_reads_per_s": n / walls["fast"],
+               "classic_wall_s": walls["classic"],
+               "classic_reads_per_s": n / walls["classic"],
+               "identical": True}
+    print("mapped " + json.dumps(summary), flush=True)
+    return summary
+
+
+def mapped_chain_case(paths, work) -> dict:
+    """``mapped_chain_400k``, one run at a time: extract, correct, fastq,
+    the stand-in aligner, zipper (batch engine, then ``--classic``:
+    identical), sort template-coordinate of the whole and of each half and
+    merge of the halves (equal to the whole), group, simplex on ``cuda``
+    (K1 launched) and then on ``cpu`` (no launch; every count zeroed just
+    before each, read just after), identical, and filter. Prints a
+    ``mapped`` line with each step's wall and records/s; returns the
+    summary with the ``cuda`` simplex run's largest batch."""
+    r1, r2, wl = paths["mapped_chain_400k"]
+    with open(wl, "rb") as a, open(paths["correct_1M"][1], "rb") as b:
+        check(a.read() == b.read(), "mapped_chain_400k: its includelist is "
+                                    "not correct_1M's")
+    p = {k: os.path.join(work, f"mapped.{k}") for k in (
+        "unmapped.bam", "corrected.bam", "reads.fq", "aligned.bam",
+        "zipped.bam", "zipped_classic.bam", "half_a.bam", "half_b.bam",
+        "sorted.bam", "sorted_a.bam", "sorted_b.bam", "merged.bam",
+        "grouped.bam", "cons.cuda.bam", "cons.cpu.bam", "filtered.bam")}
+    steps = {}
+
+    def step(name, wall, n_in):
+        steps[name] = {"wall_s": wall, "records": n_in,
+                       "records_per_s": n_in / wall if wall else None}
+
+    n_reads = 10 * int(MAPPED_SIM[MAPPED_SIM.index("--num-families") + 1])
+    step("extract", _cli_wall(["extract", "-i", r1, r2, *PIPELINE_OPTS, "-o",
+                               p["unmapped.bam"]]), n_reads)
+    step("correct", _cli_wall(["correct", "-i", p["unmapped.bam"], "-o",
+                               p["corrected.bam"], "-U", wl]), n_reads)
+    n_corr = len(records(p["corrected.bam"]))
+    step("fastq", _cli_wall(["fastq", "-i", p["corrected.bam"], "-o",
+                             p["reads.fq"]]), n_corr)
+    t0 = time.monotonic()
+    n_aln = stand_in_align(p["reads.fq"], p["aligned.bam"])
+    step("stand_in_align", time.monotonic() - t0, n_corr)
+    zipper = ["zipper", "-i", p["aligned.bam"], "-u", p["corrected.bam"]]
+    step("zipper", _cli_wall([*zipper, "-o", p["zipped.bam"]]), n_aln)
+    step("zipper_classic", _cli_wall([*zipper, "-o", p["zipped_classic.bam"],
+                                      "--classic"]), n_aln)
+    zipped = records(p["zipped.bam"])
+    check(len(zipped) == n_aln and zipped == records(p["zipped_classic.bam"]),
+          "mapped_chain_400k: zipper fast and --classic records differ")
+    split_at_template(p["zipped.bam"], p["half_a.bam"], p["half_b.bam"])
+    tc = ["--order", "template-coordinate"]
+    step("sort", _cli_wall(["sort", "-i", p["zipped.bam"], "-o",
+                            p["sorted.bam"], *tc]), n_aln)
+    for half in ("a", "b"):
+        _cli_wall(["sort", "-i", p[f"half_{half}.bam"], "-o",
+                   p[f"sorted_{half}.bam"], *tc])
+    step("merge", _cli_wall(["merge", "-i", p["sorted_a.bam"],
+                             p["sorted_b.bam"], "-o", p["merged.bam"], *tc]),
+         n_aln)
+    check(records(p["merged.bam"]) == records(p["sorted.bam"]),
+          "mapped_chain_400k: merge of the sorted halves differs from the "
+          "sorted whole")
+    step("group", _cli_wall(["group", "-i", p["sorted.bam"], "-o",
+                             p["grouped.bam"], "-s", "adjacency",
+                             "--device", "cuda"]), n_aln)
+    n_grouped = len(records(p["grouped.bam"]))
+    reset_counts()
+    st = run_simplex(p["grouped.bam"], p["cons.cuda.bam"], "cuda",
+                     ["--min-reads", "1"])
+    counts = read_counts()
+    reset_counts()
+    st_cpu = run_simplex(p["grouped.bam"], p["cons.cpu.bam"], "cpu",
+                         ["--min-reads", "1"])
+    cpu_counts = read_counts()
+    check(counts["consensus_wire_full"] > 0,
+          "mapped_chain_400k: K1 was never launched")
+    check(counts["consensus_wire_full"] + counts["consensus_wire_packed2"]
+          >= st["device_batches"],
+          f"mapped_chain_400k: {counts} launches < {st['device_batches']} "
+          "device batches")
+    check(not any(cpu_counts.values()),
+          f"mapped_chain_400k: the cpu run launched {cpu_counts}")
+    cons = records(p["cons.cuda.bam"])
+    check(cons and cons == records(p["cons.cpu.bam"]),
+          "mapped_chain_400k: simplex cuda and cpu records differ")
+    step("simplex", st["wall_s"], st["input_reads"])
+    step("simplex_cpu", st_cpu["wall_s"], st_cpu["input_reads"])
+    step("filter", _cli_wall(["filter", "-i", p["cons.cuda.bam"], "-o",
+                              p["filtered.bam"], "-M", "1"]), len(cons))
+    n_out = len(records(p["filtered.bam"]))
+    check(n_out > 0, "mapped_chain_400k: filter kept nothing")
+    shapes = st["batch_shapes"]
+    summary = {"case": "mapped_chain_400k", "reads": n_reads,
+               "corrected": n_corr, "aligned": n_aln, "grouped": n_grouped,
+               "consensus": len(cons), "filtered": n_out,
+               "launches": counts, "cpu_launches": cpu_counts,
+               "largest_batch": max(shapes, key=lambda s: s[0]),
+               "zipper_identical": True, "merge_equals_sort": True,
+               "simplex_identical": True, "steps": steps,
+               "chain_wall_s": sum(s["wall_s"] for k, s in steps.items()
+                                   if k not in ("zipper_classic",
+                                                "simplex_cpu"))}
+    print("mapped " + json.dumps(summary), flush=True)
+    return summary
+
+
+def device_filter_env_case(inp, work, fused) -> dict:
+    """``FGUMI_TPU_DEVICE_FILTER`` on ``fixed5_1M``: ``=1`` without
+    ``--device-filter``, and ``=0`` with it, each write the records of the
+    ``--device-filter`` run (``fused``) with its launches (K1-f). Counts
+    zeroed just before each run, read just after."""
+    base = ["--min-reads", "1", *FILTER_OPTS]
+    want = records(fused["out"])
+    out = {}
+    for value, flags in (("1", base), ("0", base + ["--device-filter"])):
+        path = os.path.join(work, f"fixed5_1M_env{value}.bam")
+        stats = path + ".json"
+        reset_counts()
+        wall = _cli_wall(["simplex", "-i", inp, "-o", path, "--device",
+                          "cuda", "--stats-json", stats, *flags],
+                         {"FGUMI_TPU_DEVICE_FILTER": value})
+        counts = read_counts()
+        check(records(path) == want,
+              f"device_filter_env ={value}: records differ from the "
+              "--device-filter run's")
+        check(counts == fused["launches"],
+              f"device_filter_env ={value}: launches {counts}, the "
+              f"--device-filter run's {fused['launches']}")
+        with open(stats) as f:
+            st = json.load(f)
+        out[value] = {"wall_s": wall, "launches": counts,
+                      "fused_batches": st["fused_batches"],
+                      "records_written": st["records_written"]}
+    summary = {"case": "device_filter_env", "input": "fixed5_1M",
+               "records": len(want), "fused_launches": fused["launches"],
+               "env": out, "identical": True}
+    print("mapped " + json.dumps(summary), flush=True)
+    return summary
+
+
+def mapped_phase(paths, work, fused) -> dict:
+    """The mapped phase, one run at a time (no wall shares the host with
+    another run of this script): ``correct_1M``, ``mapped_chain_400k``,
+    then ``device_filter_env`` (``fused``: the ``fixed5_1M
+    --device-filter`` cuda run's output and launches)."""
+    t0 = time.monotonic()
+    out = {"correct_1M": correct_1m_case(paths, work),
+           "mapped_chain_400k": mapped_chain_case(paths, work),
+           "device_filter_env": device_filter_env_case(paths["fixed5_1M"],
+                                                       work, fused)}
+    print(f"mapped phase {time.monotonic() - t0:.1f}s", flush=True)
+    return out
+
+
 def libdeflate_probe() -> str:
     """Whether this host has libdeflate's header and shared library (the
     port links no compression library; this only looks)."""
@@ -3486,6 +3874,37 @@ def _simulate_fastq(pair, n_families):
                    *FASTQ_SIM])
     check(rc == 0, f"simulate fastq-reads exited {rc}")
     return 10 * n_families, time.monotonic() - t0
+
+
+def _simulate_correct(paths, argv):
+    """Worker-process body: ``correct_1M``'s reads, includelist and truth
+    through the port's ``simulate correct-reads``."""
+    from fgumi_tpu_torch import cli
+
+    t0 = time.monotonic()
+    bam, wl, truth = paths
+    check(cli.main(["simulate", "correct-reads", "-o", bam, "-i", wl,
+                    "--truth", truth, *argv]) == 0,
+          "simulate correct-reads failed")
+    return int(argv[argv.index("-n") + 1]), time.monotonic() - t0
+
+
+def _simulate_mapped_fastq(paths, argv):
+    """Worker-process body: ``mapped_chain_400k``'s FASTQ pair, its UMIs
+    from ``correct_1M``'s includelist (the same seed's list, written here
+    by ``simulate correct-reads -n 0``, so this input needs no wait)."""
+    from fgumi_tpu_torch import cli
+
+    t0 = time.monotonic()
+    r1, r2, wl = paths
+    check(cli.main(["simulate", "correct-reads", "-o", wl + ".bam", "-i", wl,
+                    *CORRECT_SIM, "-n", "0"]) == 0,
+          "simulate correct-reads -n 0 failed")
+    check(cli.main(["simulate", "fastq-reads", "-1", r1, "-2", r2,
+                    "--includelist", wl, *argv]) == 0,
+          "simulate fastq-reads failed")
+    return 10 * int(argv[argv.index("--num-families") + 1]), \
+        time.monotonic() - t0
 
 
 def _simulate(path, kw):
@@ -3568,82 +3987,36 @@ def kernel_entry(name, res, launches, replaces, path,
             "geometry": res.get("geometry")}
 
 
-def main():
-    import torch
+def _mapped_inputs(work) -> tuple:
+    """The mapped phase's inputs: ({name: (worker body, argument)},
+    {name: paths})."""
+    inputs = {"correct_1M": (_simulate_correct, CORRECT_SIM),
+              "mapped_chain_400k": (_simulate_mapped_fastq, MAPPED_SIM)}
+    paths = {"correct_1M": tuple(os.path.join(work, f"correct_1M.{x}")
+                                 for x in ("bam", "list.txt", "truth.tsv")),
+             "mapped_chain_400k": tuple(
+                 os.path.join(work, f"mapped_chain_400k.{x}")
+                 for x in ("r1.fq.gz", "r2.fq.gz", "list.txt"))}
+    return inputs, paths
 
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is false: this smoke needs a GPU", 2)
-    root = os.path.dirname(os.path.abspath(__file__))
-    sys.path.insert(0, root)
-    try:
-        from fgumi_tpu_torch import native
-        from fgumi_tpu_torch.ops import cuda_kernel
-    except ImportError as e:
-        fail(f"the fgumi_tpu_torch package is missing: {e}", 2)
-    t_start = time.monotonic()
-    smi = nvidia_smi_line()
-    print(smi, flush=True)
-    print(libdeflate_probe(), flush=True)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"device {torch.cuda.get_device_name(0)}", flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
-    inputs = {**{k: (_simulate, kw) for k, kw in INPUTS.items()},
-              **{k: (_simulate_duplex, kw) for k, kw in DUPLEX.items()},
-              **{k: (_simulate_codec, kw) for k, kw in CODEC.items()},
-              **{k: (_amplicon, kw) for k, kw in AMPLICONS.items()},
-              **{k: (_simulate_fastq, n) for k, n in FASTQ.items()},
-              **{k: (_methylation, kw) for k, kw in METHYLATION.items()},
-              "meth_ref": (_meth_reference, METH_REF)}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work, \
-            cf.ProcessPoolExecutor(
-                max_workers=len(inputs),
-                mp_context=multiprocessing.get_context("spawn")) as pool:
-        paths = {k: os.path.join(work, f"{k}.bam") for k in inputs}
-        paths.update({k: (os.path.join(work, f"{k}.r1.fq.gz"),
-                          os.path.join(work, f"{k}.r2.fq.gz"))
-                      for k in FASTQ})
-        paths["meth_ref"] = os.path.join(work, "meth_ref.fa")
-        sims = {k: pool.submit(fn, paths[k], kw)
-                for k, (fn, kw) in inputs.items()}
-        with cf.ThreadPoolExecutor(max_workers=2) as builders:
-            t_cuda = builders.submit(_timed_build, cuda_kernel.build)
-            t_native = builders.submit(_timed_build, native.build)
-            print(f"built {', '.join(cuda_kernel.SOURCES)} (one nvcc each) "
-                  f"in {t_cuda.result():.1f}s and the native host library "
-                  f"in {t_native.result():.1f}s (in parallel)", flush=True)
-        for line in cuda_kernel.BUILD_LOG.splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
-                print("ptxas: " + line.strip(), flush=True)
-        dev = torch.device("cuda", 0)
+def _build_all(torch, native, cuda_kernel):
+    with cf.ThreadPoolExecutor(max_workers=2) as builders:
+        t_cuda = builders.submit(_timed_build, cuda_kernel.build)
+        t_native = builders.submit(_timed_build, native.build)
+        print(f"built {', '.join(cuda_kernel.SOURCES)} (one nvcc each) "
+              f"in {t_cuda.result():.1f}s and the native host library "
+              f"in {t_native.result():.1f}s (in parallel)", flush=True)
+    for line in cuda_kernel.BUILD_LOG.splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            print("ptxas: " + line.strip(), flush=True)
+    return torch.device("cuda", 0)
 
-        hamming_phase_test_shapes(dev)
-        combine_phase_test_shapes(dev)
-        kernel_phase_test_shapes(dev)
-        packed2_phase_test_shapes(dev)
-        for k, fut in sims.items():
-            n, dt = fut.result()
-            print(f"built input {k}: {n} records in {dt:.1f}s", flush=True)
-        e2e = e2e_phase(paths, work)
-        groups = group_phase(paths, work)
-        pipes = pipeline_phase(paths, work)
-        filter_phase(pipes["pipeline_400k"], work)
-        sort_phase(paths, work)
-        duplexes = duplex_phase(paths, work)
-        codecs = codec_phase(paths, work)
-        methylation_phase(paths, work)
-        rejects_phase(paths, work)
-        staged = staged_phase(paths, work, staged_serial_runs(
-            e2e, groups, pipes, duplexes, codecs))
-        io_phase(e2e["fixed5_1M"]["fast"]["out"])
-        observe_phase(paths, work, pipes, staged, staged_serial_runs(
-            e2e, groups, pipes, duplexes, codecs))
-        dedup, compares = dedup_phase(
-            paths, work, groups["amplicon_group_adjacency_fast"])
-        resilience_phase(paths, work, e2e, duplexes)
-        dedup_compare_finish(compares)
 
+def earlier_kernel_entries(dev, e2e, groups, pipes, duplexes, codecs,
+                           staged, dedup) -> list:
+    """The ``kernels`` line's entries of the phases before ``mapped``: each
+    kernel checked and timed at the shapes its runs reported."""
     shapes = {case: {kind: s["largest_batch"] for kind, s in runs.items()}
               for case, runs in e2e.items()}
     p400, pk4 = pipes["pipeline_400k"], pipes["pipeline_k4_50k"]
@@ -3687,7 +4060,7 @@ def main():
 
     # one entry a kernel and path: each launch count is that of the run
     # whose largest batch (or launch) the entry was checked and timed at
-    kernels = {"kernels": [
+    return [
         kernel_entry("consensus_wire_full", main_k["k1_fixed"],
                      e2e["fixed5_1M"]["fast"]["launches"][
                          "consensus_wire_full"], REPLACES_FULL,
@@ -3736,9 +4109,113 @@ def main():
                      staged=staged["many_quals_20k_t4"],
                      fixed5_p2_ms=k1p2_fixed5["ms"],
                      fixed5_p2_plain_ms=k1p2_fixed5["plain_ms"],
-                     fixed5_p2_bound_ms=k1p2_fixed5["bound_ms"])]}
+                     fixed5_p2_bound_ms=k1p2_fixed5["bound_ms"]),
+        ]
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke needs a GPU", 2)
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    try:
+        from fgumi_tpu_torch import native
+        from fgumi_tpu_torch.ops import cuda_kernel
+    except ImportError as e:
+        fail(f"the fgumi_tpu_torch package is missing: {e}", 2)
+    if sys.argv[1:] not in ([], ["--phase", "mapped"]):
+        fail(f"unknown arguments {sys.argv[1:]} (none, or --phase mapped)",
+             2)
+    # --phase mapped: the mapped phase alone, with fixed5_1M (whose
+    # --device-filter run device_filter_env compares with)
+    every_phase = not sys.argv[1:]
+    t_start = time.monotonic()
+    smi = nvidia_smi_line()
+    print(smi, flush=True)
+    print(libdeflate_probe(), flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    inputs = {"fixed5_1M": (_simulate, INPUTS["fixed5_1M"]),
+              **_mapped_inputs("")[0]}
+    if every_phase:
+        inputs.update({
+            **{k: (_simulate, kw) for k, kw in INPUTS.items()},
+            **{k: (_simulate_duplex, kw) for k, kw in DUPLEX.items()},
+            **{k: (_simulate_codec, kw) for k, kw in CODEC.items()},
+            **{k: (_amplicon, kw) for k, kw in AMPLICONS.items()},
+            **{k: (_simulate_fastq, n) for k, n in FASTQ.items()},
+            **{k: (_methylation, kw) for k, kw in METHYLATION.items()},
+            "meth_ref": (_meth_reference, METH_REF)})
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work, \
+            cf.ProcessPoolExecutor(
+                max_workers=len(inputs),
+                mp_context=multiprocessing.get_context("spawn")) as pool:
+        paths = {k: os.path.join(work, f"{k}.bam") for k in inputs}
+        paths.update({k: (os.path.join(work, f"{k}.r1.fq.gz"),
+                          os.path.join(work, f"{k}.r2.fq.gz"))
+                      for k in FASTQ})
+        paths["meth_ref"] = os.path.join(work, "meth_ref.fa")
+        paths.update(_mapped_inputs(work)[1])
+        sims = {k: pool.submit(fn, paths[k], kw)
+                for k, (fn, kw) in inputs.items()}
+        dev = _build_all(torch, native, cuda_kernel)
+
+        if every_phase:
+            hamming_phase_test_shapes(dev)
+            combine_phase_test_shapes(dev)
+            kernel_phase_test_shapes(dev)
+            packed2_phase_test_shapes(dev)
+        for k, fut in sims.items():
+            n, dt = fut.result()
+            print(f"built input {k}: {n} records in {dt:.1f}s", flush=True)
+        if every_phase:
+            e2e = e2e_phase(paths, work)
+            groups = group_phase(paths, work)
+            pipes = pipeline_phase(paths, work)
+            filter_phase(pipes["pipeline_400k"], work)
+            sort_phase(paths, work)
+            duplexes = duplex_phase(paths, work)
+            codecs = codec_phase(paths, work)
+            methylation_phase(paths, work)
+            rejects_phase(paths, work)
+            staged = staged_phase(paths, work, staged_serial_runs(
+                e2e, groups, pipes, duplexes, codecs))
+            io_phase(e2e["fixed5_1M"]["fast"]["out"])
+            observe_phase(paths, work, pipes, staged, staged_serial_runs(
+                e2e, groups, pipes, duplexes, codecs))
+            dedup, compares = dedup_phase(
+                paths, work, groups["amplicon_group_adjacency_fast"])
+            resilience_phase(paths, work, e2e, duplexes)
+            dedup_compare_finish(compares)
+            fused = e2e["fixed5_1M"]["fused"]
+        else:
+            fused = e2e_case("fixed5_1M_fused", paths["fixed5_1M"], work,
+                             ["--min-reads", "1", "--device-filter",
+                              *FILTER_OPTS], True)
+        mapped = mapped_phase(paths, work, fused)
+
+    if every_phase:
+        entries = earlier_kernel_entries(dev, e2e, groups, pipes, duplexes,
+                                         codecs, staged, dedup)
+    else:
+        k1f = kernel_phase_main_path(
+            dev, {"fixed5_1M": {"fused": fused["largest_batch"]}}, {}, {})
+        entries = [kernel_entry(
+            "consensus_wire_filter", k1f["k1f_fixed"],
+            fused["launches"]["consensus_wire_filter"], REPLACES_FILTER,
+            "fixed5_1M_fused")]
+    entries.append(kernel_entry(
+        "consensus_wire_full", check_k1_mapped(mapped["mapped_chain_400k"],
+                                               dev),
+        mapped["mapped_chain_400k"]["launches"]["consensus_wire_full"],
+        REPLACES_FULL, "mapped_chain_400k"))
     print(f"total {time.monotonic() - t_start:.1f}s", flush=True)
-    print(json.dumps(kernels), flush=True)
+    print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

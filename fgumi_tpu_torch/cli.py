@@ -1,7 +1,15 @@
 """Command line of the PyTorch/CUDA port: ``pipeline``, ``extract``,
-``sort``, ``group``, ``dedup``, ``simplex``, ``duplex``, ``codec``,
-``filter``, ``compare bams|metrics`` and ``simulate grouped-reads|
-duplex-reads|codec-reads|mapped-reads|fastq-reads``.
+``correct``, ``fastq``, ``zipper``, ``sort``, ``merge``, ``group``,
+``dedup``, ``simplex``, ``duplex``, ``codec``, ``filter``, ``compare
+bams|metrics`` and ``simulate grouped-reads|duplex-reads|codec-reads|
+mapped-reads|fastq-reads|consensus-reads|correct-reads``.
+
+``correct``, ``fastq``, ``zipper`` and ``merge`` are host commands (no
+``--device``; nothing touches CUDA) with the reference's options:
+``correct`` and ``zipper`` run a batch engine unless ``--classic`` asks
+for the per-template one (``zipper`` also takes it for
+``--restore-unconverted-bases`` and for a ``--tags-to-remove`` of a tag it
+appends), ``merge`` merges each input's batch-extracted sort keys.
 
 ``simplex``, ``duplex``, ``codec``, ``group`` and ``dedup`` take
 ``--device {cuda,cpu}`` (default
@@ -59,7 +67,13 @@ blocked time. Records do not depend on N. The reference's pipeline-tuning
 flags (``--scheduler``, ``--deadlock-timeout``, ``--deadlock-recover``,
 ``--memory-per-thread``, ``--pipeline-stats``, ``--async-reader``) map as
 the reference maps them. Options of the reference CLI this port does not
-implement yet exit 2 with "not yet ported" instead of being ignored.
+implement yet exit 2 with "not yet ported" instead of being ignored, and
+so do their environment forms (``FGUMI_TPU_MESH`` and ``FGUMI_TPU_SP``
+where they would shard, ``FGUMI_TPU_PROFILE``; a mesh value the reference
+rejects gets its knob line). ``FGUMI_TPU_DEVICE_FILTER`` is read as the
+reference reads it: ``1``/``true``/``on``/``force`` stand for
+``--device-filter``, ``0``/``false``/``off`` keep the fused filter on
+full columns (K1 in place of K1-f).
 """
 
 import argparse
@@ -645,8 +659,11 @@ def cmd_simplex(args, argv, source=None, sink=None):
         min_consensus_base_quality=args.min_consensus_base_quality,
         methylation_mode="em-seq" if em_seq else ("taps" if taps else None),
     )
+    from .consensus.device_filter import device_filter_requested
+
+    device_filter = device_filter_requested(args)
     filter_stage = filter_tap = None
-    if args.device_filter:
+    if device_filter:
         from .consensus.device_filter import (HostFilterTap,
                                               SimplexFilterStage,
                                               filter_config_from_args)
@@ -709,8 +726,7 @@ def cmd_simplex(args, argv, source=None, sink=None):
     if kt:
         log.info("kernel fallback rate: %.4f%% (%d/%d positions)",
                  100.0 * kf / kt, kf, kt)
-    fstats = (filter_stage or filter_tap).stats \
-        if args.device_filter else None
+    fstats = (filter_stage or filter_tap).stats if device_filter else None
     n_out = s.consensus_reads
     if fstats is not None:
         _log_filter_stats(fstats, "simplex")
@@ -2042,6 +2058,463 @@ def cmd_compare_metrics(args, argv):
     return run_compare_metrics(args)
 
 
+def _add_correct(sub):
+    p = sub.add_parser("correct", help="Correct UMIs to a fixed whitelist")
+    p.add_argument("-i", "--input", required=True)
+    p.add_argument("-o", "--output", required=True)
+    p.add_argument("-u", "--umis", nargs="*", default=[],
+                   help="whitelist UMI sequences")
+    p.add_argument("-U", "--umi-files", nargs="*", default=[],
+                   help="files with one whitelist UMI per line")
+    p.add_argument("-m", "--metrics", default=None, help="per-UMI metrics TSV")
+    p.add_argument("-r", "--rejects", default=None,
+                   help="BAM for records whose UMI could not be corrected")
+    p.add_argument("--target", choices=["umi", "barcode"], default="umi",
+                   help="umi: RX (original in OX); barcode: BC (original in ob)")
+    p.add_argument("--max-mismatches", type=int, default=2)
+    p.add_argument("--min-distance", type=int, default=2,
+                   dest="min_distance_diff")
+    p.add_argument("--dont-store-original", action="store_true")
+    p.add_argument("--cache-size", type=int, default=100_000)
+    p.add_argument("--min-corrected", type=float, default=None,
+                   help="fail if kept/total falls below this fraction")
+    p.add_argument("--revcomp", action="store_true",
+                   help="reverse-complement observed UMIs before matching")
+    p.add_argument("--classic", action="store_true",
+                   help="the per-template engine (default: the batch "
+                        "engine)")
+    _add_pipeline_compat(p)
+    p.set_defaults(func=cmd_correct)
+
+
+def cmd_correct(args, argv):
+    """The reference's ``correct`` (fgumi_tpu/cli.py cmd_correct): the
+    whitelist sweep runs in numpy on the host, on either engine."""
+    import contextlib
+
+    from .commands.correct import (UmiMatcher, find_umi_pairs_within_distance,
+                                   load_umi_sequences, run_correct,
+                                   write_correction_metrics)
+    from .io.bam import BamReader, BamWriter
+
+    if args.min_corrected is not None and not 0.0 <= args.min_corrected <= 1.0:
+        log.error("--min-corrected must be between 0 and 1")
+        return 2
+    try:
+        umis, umi_length = load_umi_sequences(args.umis, args.umi_files)
+    except (ValueError, OSError) as e:
+        log.error("%s", e)
+        return 2
+    log.info("correct: loaded %d whitelist UMIs of length %d", len(umis),
+             umi_length)
+    # ambiguity warning (fgbio uses min_distance_diff - 1; 0 reports nothing)
+    if args.min_distance_diff > 0:
+        pairs = find_umi_pairs_within_distance(umis,
+                                               args.min_distance_diff - 1)
+        for u1, u2, d in pairs:
+            log.warning("whitelist UMIs within min-distance-diff: %s <-> %s "
+                        "(distance %d) — may be ambiguous and fail to match",
+                        u1, u2, d)
+    matcher = UmiMatcher(umis, args.max_mismatches, args.min_distance_diff,
+                         args.cache_size)
+    if args.classic:
+        _Reader, _run = BamReader, run_correct
+    else:
+        from .commands.fast_correct import run_correct_fast
+        from .io.batch_reader import BamBatchReader
+
+        _Reader, _run = BamBatchReader, run_correct_fast
+    t0 = time.monotonic()
+    try:
+        with _Reader(args.input) as reader:
+            out_header = _header_with_pg(reader.header, " ".join(argv))
+            with contextlib.ExitStack() as stack:
+                writer = stack.enter_context(BamWriter(args.output,
+                                                       out_header))
+                rejects_writer = None
+                if args.rejects:
+                    rejects_writer = stack.enter_context(
+                        BamWriter(args.rejects, out_header))
+                stats = _run(
+                    reader, writer, matcher, umi_length, target=args.target,
+                    revcomp=args.revcomp,
+                    store_original=not args.dont_store_original,
+                    rejects_writer=rejects_writer)
+    except (ValueError, OSError) as e:
+        log.error("%s", e)
+        return 2
+    dt = time.monotonic() - t0
+    rejected = stats.missing_umis + stats.wrong_length + stats.mismatched
+    total = stats.records_written + rejected
+    log.info("correct: read %d records; kept %d, rejected %d "
+             "(%d missing, %d wrong length, %d mismatched) in %.2fs",
+             total, stats.records_written, rejected, stats.missing_umis,
+             stats.wrong_length, stats.mismatched, dt)
+    if stats.missing_umis or stats.wrong_length:
+        log.error("%d records missing UMI attributes; %d had UMIs of "
+                  "unexpected length", stats.missing_umis, stats.wrong_length)
+    if args.metrics:
+        write_correction_metrics(stats, umi_length, args.metrics)
+    if args.min_corrected is not None and total:
+        ratio = stats.records_written / total
+        if ratio < args.min_corrected:
+            log.error("Final ratio of reads kept / total was %.2f (minimum "
+                      "%.2f); this could indicate a mismatch between library "
+                      "preparation and the provided UMI whitelist",
+                      ratio, args.min_corrected)
+            return 1
+    return 0
+
+
+def _merge_zipper_headers(mapped, unmapped):
+    """Mapped header plus @RG/@PG/@CO lines only the unmapped header carries
+    (build_output_header, zipper.rs:232-278): the aligner often drops the @RG
+    written by extract, which downstream library lookups need."""
+    from .io.bam import BamHeader
+
+    def ids(lines, kind):
+        out = set()
+        for line in lines:
+            if line.startswith(kind):
+                fields = dict(f.split(":", 1) for f in line.split("\t")[1:]
+                              if ":" in f)
+                if "ID" in fields:
+                    out.add(fields["ID"])
+        return out
+
+    mapped_lines = mapped.text.splitlines()
+    extra = []
+    for kind in ("@RG", "@PG"):
+        have = ids(mapped_lines, kind)
+        for line in unmapped.text.splitlines():
+            if line.startswith(kind):
+                fields = dict(f.split(":", 1) for f in line.split("\t")[1:]
+                              if ":" in f)
+                if fields.get("ID") not in have:
+                    extra.append(line)
+    mapped_co = {line for line in mapped_lines if line.startswith("@CO")}
+    extra.extend(line for line in unmapped.text.splitlines()
+                 if line.startswith("@CO") and line not in mapped_co)
+    if not extra:
+        return mapped
+    return BamHeader(text="\n".join(mapped_lines + extra) + "\n",
+                     ref_names=mapped.ref_names,
+                     ref_lengths=mapped.ref_lengths)
+
+
+def _add_zipper(sub):
+    p = sub.add_parser("zipper", help="Zip unmapped BAM with aligned BAM")
+    p.add_argument("-i", "--input", required=True,
+                   help="mapped BAM from the aligner (queryname ordered)")
+    p.add_argument("-u", "--unmapped", required=True,
+                   help="unmapped BAM with tags to restore (same ordering)")
+    p.add_argument("-o", "--output", required=True)
+    p.add_argument("--tags-to-remove", nargs="*", default=[])
+    p.add_argument("--tags-to-reverse", nargs="*", default=[],
+                   help="tags (or the 'Consensus' set) to reverse on "
+                        "negative strand")
+    p.add_argument("--tags-to-revcomp", nargs="*", default=[],
+                   help="tags (or the 'Consensus' set) to revcomp on "
+                        "negative strand")
+    p.add_argument("--skip-tc-tags", nargs="?", const=True, default=False,
+                   type=_parse_bool)
+    p.add_argument("--exclude-missing-reads", nargs="?", const=True,
+                   default=False, type=_parse_bool,
+                   help="drop unmapped-BAM reads the aligner omitted")
+    p.add_argument("--restore-unconverted-bases", nargs="?", const=True,
+                   default=False, type=_parse_bool,
+                   help="EM-Seq: rewrite converted bases back to the "
+                        "unconverted reference form at aligned ref-C/ref-G "
+                        "positions after bwameth re-alignment (uses the "
+                        "bwameth YD strand tag; requires --ref)")
+    p.add_argument("-r", "--ref", default=None,
+                   help="reference FASTA (required with "
+                        "--restore-unconverted-bases)")
+    p.add_argument("-K", "--bwa-chunk-size", type=int, default=150000000,
+                   help="accepted for compatibility (bwa -K stdin buffer "
+                        "sizing hint; this reader sizes buffers adaptively)")
+    p.add_argument("--classic", action="store_true",
+                   help="the per-template engine (default: the batch "
+                        "engine)")
+    _add_pipeline_compat(p)
+    p.set_defaults(func=cmd_zipper)
+
+
+def cmd_zipper(args, argv):
+    """The reference's ``zipper`` (fgumi_tpu/cli.py cmd_zipper): the batch
+    engine unless ``--classic``, ``--restore-unconverted-bases`` (per
+    record) or a ``--tags-to-remove`` of a tag the batch engine itself
+    appends (MQ/MC/ms/AS/XS) asks for the per-template one."""
+    from .commands.zipper import TagInfo, run_zipper
+    from .core.template import is_query_grouped
+    from .io.bam import BamReader, BamWriter
+    from .io.batch_reader import BamBatchReader, BatchedRecordReader
+
+    tag_info = TagInfo.from_options(
+        remove=args.tags_to_remove, reverse=args.tags_to_reverse,
+        revcomp=args.tags_to_revcomp)
+    restore = None
+    if args.restore_unconverted_bases:
+        if args.ref is None:
+            log.error("--restore-unconverted-bases requires --ref")
+            return 2
+        restore_ref = _reference(args.ref)
+        if restore_ref is None:
+            return 2
+        with BamReader(args.input) as r:
+            restore = (restore_ref, r.header.ref_names)
+    use_fast = (not args.classic and restore is None
+                and not (tag_info.remove & {"MQ", "MC", "ms", "AS", "XS"}))
+    t0 = time.monotonic()
+    try:
+        _Reader = BamBatchReader if use_fast else BatchedRecordReader
+        with _Reader(args.input) as mapped, _Reader(args.unmapped) as unmapped:
+            for name, r in (("mapped", mapped), ("unmapped", unmapped)):
+                if not is_query_grouped(r.header.text):
+                    log.error("zipper requires queryname-sorted or "
+                              "query-grouped %s input (@HD must advertise "
+                              "SO:queryname or GO:query)", name)
+                    return 2
+            out_header = _header_with_pg(
+                _merge_zipper_headers(mapped.header, unmapped.header),
+                " ".join(argv))
+            with BamWriter(args.output, out_header) as writer:
+                if use_fast:
+                    from .commands.fast_zipper import run_zipper_fast
+
+                    n_templates, n_records, n_missing = run_zipper_fast(
+                        mapped, unmapped, writer, tag_info,
+                        skip_tc_tags=args.skip_tc_tags,
+                        exclude_missing_reads=args.exclude_missing_reads)
+                else:
+                    n_templates, n_records, n_missing = run_zipper(
+                        mapped, unmapped, writer, tag_info,
+                        skip_tc_tags=args.skip_tc_tags,
+                        exclude_missing_reads=args.exclude_missing_reads,
+                        restore_unconverted=restore)
+    except (ValueError, OSError) as e:
+        log.error("%s", e)
+        return 2
+    dt = time.monotonic() - t0
+    log.info("zipper: %d templates (%d records) in %.2fs (%.0f rec/s)",
+             n_templates, n_records, dt, n_records / dt if dt else 0)
+    if n_missing:
+        verb = "excluded" if args.exclude_missing_reads else "passed through"
+        log.info("zipper: %d templates not present in the aligned BAM (%s)",
+                 n_missing, verb)
+    return 0
+
+
+def _add_fastq(sub):
+    def _flags(s):
+        return int(s, 16) if s.lower().startswith("0x") else int(s)
+
+    p = sub.add_parser("fastq", help="BAM -> mate-paired interleaved FASTQ")
+    p.add_argument("-i", "--input", required=True)
+    p.add_argument("-o", "--output", default="-",
+                   help="output FASTQ (- for stdout)")
+    p.add_argument("-n", "--no-read-suffix", nargs="?", const=True,
+                   default=False, type=_parse_bool,
+                   help="don't append /1 and /2 to read names")
+    p.add_argument("-F", "--exclude-flags", type=_flags, default=0x900,
+                   help="exclude reads with ANY of these flags "
+                        "(default 0x900 = secondary|supplementary)")
+    p.add_argument("-f", "--require-flags", type=_flags, default=0,
+                   help="only include reads with ALL of these flags")
+    p.add_argument("-a", "-U", "--annotate-read-names", nargs="?", const=True,
+                   default=False, type=_parse_bool,
+                   help="append the UMI to the read name before any /1 "
+                        "suffix (samtools fastq -U / DRAGEN layout)")
+    p.add_argument("--umi-tag", default="RX,OX",
+                   help="comma list of tags to read the UMI from, first "
+                        "present wins")
+    p.add_argument("--umi-name-delim", default=":",
+                   help="delimiter between read name and UMI")
+    p.add_argument("--umi-sep", default="+",
+                   help="duplex-UMI half separator in the read name "
+                        "(stored '-' is rewritten to this)")
+    p.add_argument("-K", "--bwa-chunk-size", type=int, default=150000000,
+                   help="accepted for compatibility (bwa -K output buffer "
+                        "sizing hint)")
+    _add_pipeline_compat(p)
+    p.set_defaults(func=cmd_fastq)
+
+
+def cmd_fastq(args, argv):
+    """The reference's ``fastq`` (fgumi_tpu/cli.py cmd_fastq): mates
+    interleaved through a map of pending reads, secondary and
+    supplementary records (a non-default ``-F``) written as they come and
+    never paired, orphans last in input order; a file output is published
+    only when complete."""
+    from .constants import reverse_complement_bytes
+    from .io.bam import (FLAG_FIRST, FLAG_LAST, FLAG_PAIRED, FLAG_REVERSE,
+                         FLAG_SECONDARY, FLAG_SUPPLEMENTARY, BamReader)
+    from .utils.atomic import discard_output, open_output
+
+    out = sys.stdout.buffer if args.output == "-" else open_output(args.output)
+    n = 0
+    umi_tags = [t.strip().encode() for t in args.umi_tag.split(",")
+                if t.strip()]
+    name_delim = args.umi_name_delim.encode()
+    umi_sep = args.umi_sep
+    exclude = args.exclude_flags
+    require = args.require_flags
+
+    def umi_of(rec):
+        for tag in umi_tags:
+            v = rec.get_str(tag)
+            if v:
+                # stored duplex UMIs use '-' between halves; aligner-facing
+                # names use --umi-sep (DRAGEN/samtools '+')
+                return v.replace("-", umi_sep).encode()
+        return None
+
+    def emit(rec):
+        nonlocal n
+        seq = rec.seq_bytes()
+        quals = rec.quals()
+        if rec.flag & FLAG_REVERSE:
+            seq = reverse_complement_bytes(seq)
+            quals = quals[::-1]
+        name = rec.name
+        if args.annotate_read_names:
+            umi = umi_of(rec)
+            if umi:
+                name = name + name_delim + umi
+        suffix = b""
+        if not args.no_read_suffix:
+            suffix = b"/1" if rec.flag & FLAG_FIRST else (
+                b"/2" if rec.flag & FLAG_LAST else b"")
+        out.write(b"@" + name + suffix + b"\n" + seq + b"\n+\n"
+                  + (quals + 33).tobytes() + b"\n")
+        n += 1
+
+    pending = {}
+    try:
+        with BamReader(args.input) as reader:
+            for rec in reader:
+                if (rec.flag & exclude) or (rec.flag & require) != require:
+                    continue
+                if rec.flag & (FLAG_SECONDARY | FLAG_SUPPLEMENTARY) \
+                        or not rec.flag & FLAG_PAIRED:
+                    # a secondary or supplementary record (admitted by a
+                    # non-default -F) never enters the mate pairing: a
+                    # supplementary R1 would pair with its own primary
+                    emit(rec)
+                    continue
+                mate = pending.pop(rec.name, None)
+                if mate is None:
+                    pending[rec.name] = rec
+                else:
+                    r1, r2 = ((rec, mate) if rec.flag & FLAG_FIRST
+                              else (mate, rec))
+                    emit(r1)
+                    emit(r2)
+        for rec in pending.values():  # orphaned mates, in input order
+            emit(rec)
+    except BaseException:
+        if out is not sys.stdout.buffer:
+            discard_output(out)
+        raise
+    else:
+        out.flush()
+        if out is not sys.stdout.buffer:
+            out.close()
+    log.info("fastq: wrote %d reads", n)
+    return 0
+
+
+def _add_merge(sub):
+    p = sub.add_parser("merge", help="Merge same-order sorted BAMs")
+    p.add_argument("-i", "--input", nargs="+", default=[])
+    p.add_argument("--input-list", default=None,
+                   help="file with one input BAM path per line (combined "
+                        "with -i)")
+    p.add_argument("-o", "--output", required=True)
+    p.add_argument("--order", default="template-coordinate",
+                   choices=["coordinate", "queryname", "template-coordinate"])
+    p.add_argument("--subsort", default="natural", choices=["natural", "lex"])
+    _add_pipeline_compat(p)
+    p.set_defaults(func=cmd_merge)
+
+
+def cmd_merge(args, argv):
+    """The reference's ``merge`` (fgumi_tpu/cli.py cmd_merge) on its
+    batch-key route: each input's packed sort keys are extracted a batch
+    at a time (sort/keys.py) and ``heapq`` merges them; memcmp order of
+    the keys is the sort order, and ties keep the input order."""
+    import heapq
+
+    from .core.template import _hd_fields
+    from .io.bam import BamHeader, BamReader, BamWriter
+    from .sort.external import header_tags_for_order
+    from .sort.keys import iter_keyed_records, make_batch_keys_fn
+
+    if args.input_list:
+        try:
+            with open(args.input_list) as f:
+                stripped = (line.strip() for line in f)
+                args.input = list(args.input) + [
+                    s for s in stripped if s and not s.startswith("#")]
+        except OSError as e:
+            log.error("cannot read --input-list %s: %s", args.input_list, e)
+            return 2
+        missing = [p for p in args.input if not os.path.exists(p)]
+        if missing:
+            log.error("--input-list names missing file(s): %s",
+                      ", ".join(missing[:5]))
+            return 2
+    if not args.input:
+        log.error("no inputs: pass -i and/or --input-list")
+        return 2
+    headers = []
+    for path in args.input:
+        with BamReader(path) as r:
+            headers.append(r.header)
+    first = headers[0]
+    so, go, ss = header_tags_for_order(args.order, args.subsort)
+    for path, h in zip(args.input, headers):
+        if h.ref_names != first.ref_names \
+                or h.ref_lengths != first.ref_lengths:
+            log.error("merge: inputs have differing reference sequences")
+            return 2
+        hd = _hd_fields(h.text)
+        ok = (hd.get("SO") == so and (go is None or hd.get("GO") == go)
+              and (ss is None or hd.get("SS") == ss))
+        if not ok:
+            log.error("merge: %s is not sorted by the requested order "
+                      "(--order %s needs SO:%s%s%s; header has %s)",
+                      path, args.order, so, f" GO:{go}" if go else "",
+                      f" SS:{ss}" if ss else "", hd)
+            return 2
+    # the union of the @RG/@PG/@CO lines of every input (first one wins)
+    seen_lines = []
+    seen_set = set()
+    for h in headers:
+        for line in h.text.splitlines():
+            if line.startswith(("@RG", "@PG", "@CO")) \
+                    and line not in seen_set:
+                seen_set.add(line)
+                seen_lines.append(line)
+    base_lines = [line for line in first.text.splitlines()
+                  if not line.startswith(("@RG", "@PG", "@CO"))]
+    merged_text = "\n".join(base_lines + seen_lines) + "\n"
+    out_header = BamHeader(text=_rewrite_hd(merged_text, so, go, ss),
+                           ref_names=first.ref_names,
+                           ref_lengths=first.ref_lengths)
+    batch_keys_fn = make_batch_keys_fn(args.order, first, args.subsort)
+    n = 0
+    with BamWriter(args.output, out_header) as writer:
+        streams = [((key, idx, data)
+                    for key, data in iter_keyed_records(p, batch_keys_fn))
+                   for idx, p in enumerate(args.input)]
+        for _, _, data in heapq.merge(*streams):
+            writer.write_record_bytes(data)
+            n += 1
+    log.info("merge: %d records from %d inputs", n, len(args.input))
+    return 0
+
+
 # options of the reference `pipeline` that the port does not implement
 _PIPELINE_NOT_PORTED = (
     ("shard", "--shard", _given),
@@ -2799,6 +3272,60 @@ def _add_simulate(sub):
                    help="sample UMIs from this file (one per line)")
     f.add_argument("--seed", type=int, default=42)
     f.set_defaults(func=cmd_simulate_fastq)
+    cr = ps.add_parser("consensus-reads",
+                       help="mapped BAM shaped like consensus output (filter "
+                            "input)")
+    cr.add_argument("-o", "--output", required=True)
+    cr.add_argument("--truth", default=None)
+    cr.add_argument("-n", "--num-reads", type=int, default=1000)
+    cr.add_argument("-l", "--read-length", type=int, default=150)
+    cr.add_argument("--min-depth", type=int, default=1)
+    cr.add_argument("--max-depth", type=int, default=10)
+    cr.add_argument("--depth-mean", type=float, default=5.0)
+    cr.add_argument("--depth-stddev", type=float, default=2.0)
+    cr.add_argument("--error-rate-mean", type=float, default=0.01)
+    cr.add_argument("--no-per-base-tags", action="store_true")
+    cr.add_argument("--seed", type=int, default=42)
+    cr.set_defaults(func=cmd_simulate_consensus)
+    co = ps.add_parser("correct-reads",
+                       help="unmapped BAM + UMI includelist (correct input)")
+    co.add_argument("-o", "--output", required=True)
+    co.add_argument("-i", "--includelist", required=True,
+                    help="includelist file to write")
+    co.add_argument("--truth", default=None)
+    co.add_argument("-n", "--num-reads", type=int, default=10000)
+    co.add_argument("--num-umis", type=int, default=1000)
+    co.add_argument("-u", "--umi-length", type=int, default=8)
+    co.add_argument("-l", "--read-length", type=int, default=100)
+    co.add_argument("--max-errors", type=int, default=2)
+    co.add_argument("--seed", type=int, default=42)
+    co.set_defaults(func=cmd_simulate_correct)
+
+
+def cmd_simulate_consensus(args, argv):
+    from .simulate import simulate_consensus_bam
+
+    n = simulate_consensus_bam(
+        args.output, truth_path=args.truth, num_reads=args.num_reads,
+        read_length=args.read_length, min_depth=args.min_depth,
+        max_depth=args.max_depth, depth_mean=args.depth_mean,
+        depth_stddev=args.depth_stddev, error_rate_mean=args.error_rate_mean,
+        per_base_tags=not args.no_per_base_tags, seed=args.seed)
+    log.info("simulate: wrote %d consensus records to %s", n, args.output)
+    return 0
+
+
+def cmd_simulate_correct(args, argv):
+    from .simulate import simulate_correct_reads
+
+    n = simulate_correct_reads(
+        args.output, args.includelist, truth_path=args.truth,
+        num_reads=args.num_reads, num_umis=args.num_umis,
+        umi_length=args.umi_length, read_length=args.read_length,
+        max_errors=args.max_errors, seed=args.seed)
+    log.info("simulate: wrote %d reads to %s (includelist %s)", n,
+             args.output, args.includelist)
+    return 0
 
 
 def cmd_simulate_grouped(args, argv):
@@ -2996,13 +3523,62 @@ _GLOBAL_REFUSED = (
 )
 
 
+_MESH_GRAMMAR = ("'auto', 'off', or 'dpNxspM' (e.g. dp4xsp2) with dp, "
+                 "sp >= 1")
+
+
+def _knob_error(knob: str, token, problem: str, grammar: str) -> str:
+    """The reference's knob diagnostic (fgumi_tpu/utils/knobs.py)."""
+    return f"{knob}={token!r}: {problem}; expected {grammar}"
+
+
+def _env_refusal():
+    """The line refusing an environment form of a refused global option,
+    or None. ``FGUMI_TPU_MESH`` parses as the reference parses it
+    (fgumi_tpu/parallel/mesh.py ``parse_mesh_spec``): the values that
+    build no mesh there run here, a value it rejects gets its knob line,
+    and a mesh shape is not yet ported; ``FGUMI_TPU_SP`` above 1 asks for
+    a read-axis split (any other value is sp = 1 on the reference too);
+    any ``FGUMI_TPU_PROFILE`` names a deployment profile."""
+    import re
+
+    spec = os.environ.get("FGUMI_TPU_MESH")
+    s = str(spec).strip().lower() if spec is not None else ""
+    if s not in ("", "off", "none", "0", "1"):
+        m = re.match(r"^dp(\d+)(?:xsp(\d+))?$", s)
+        if s != "auto" and not m:
+            return _knob_error("FGUMI_TPU_MESH", spec,
+                               f"unrecognized shape {s!r}", _MESH_GRAMMAR)
+        if m and (int(m.group(1)) < 1
+                  or (m.group(2) is not None and int(m.group(2)) < 1)):
+            return _knob_error(
+                "FGUMI_TPU_MESH", spec,
+                f"dp={int(m.group(1))} sp={int(m.group(2) or 1)} below "
+                "the >= 1 floor", _MESH_GRAMMAR)
+        return f"FGUMI_TPU_MESH={spec}: not yet ported (multi-GPU)"
+    sp = os.environ.get("FGUMI_TPU_SP", "1")
+    if sp.isdigit() and int(sp) > 1:
+        return f"FGUMI_TPU_SP={sp}: not yet ported (multi-GPU)"
+    profile = os.environ.get("FGUMI_TPU_PROFILE")
+    if profile:
+        return (f"FGUMI_TPU_PROFILE={profile}: not yet ported (deployment "
+                "profiles come with serving and the tuner)")
+    return None
+
+
 def _refuse_globals(args) -> int:
-    """Exit 2 with one line for a refused global option or a fault spec
-    the port cannot fire, before any output is opened; else 0."""
+    """Exit 2 with one line for a refused global option, its environment
+    form or a fault spec the port cannot fire, before any output is
+    opened; else 0. ``FGUMI_TPU_XLA_PROFILE`` and
+    ``FGUMI_TPU_SHAPE_BUCKETS`` tune JAX alone and are not read."""
     for dest, flag, reason in _GLOBAL_REFUSED:
         if getattr(args, dest, None) is not None:
             log.error("%s: %s", flag, reason)
             return 2
+    line = _env_refusal()
+    if line is not None:
+        log.error("%s", line)
+        return 2
     from .utils import faults
 
     spec = faults.unported_spec()
@@ -3028,6 +3604,10 @@ def build_parser():
     _add_filter(sub)
     _add_group(sub)
     _add_dedup(sub)
+    _add_correct(sub)
+    _add_zipper(sub)
+    _add_fastq(sub)
+    _add_merge(sub)
     _add_compare(sub)
     _add_simulate(sub)
     _add_trace_merge(sub)

@@ -26,6 +26,7 @@ The classic engine (``--classic``), the fast engine's boundary groups and
 the per-record filter.
 """
 
+import os
 import threading
 
 import numpy as np
@@ -37,6 +38,19 @@ from ..ops.wire import (I16_MAX, S_MAXD, S_NAFTER, S_NEWLY, S_QSUM, S_SUMD,
 from .filter import (R_PASS, RESULT_NAMES, FilterConfig,
                      base_error_rate_table, simplex_base_mask_arrays,
                      simplex_read_verdicts)
+
+
+def device_filter_requested(args) -> bool:
+    """Whether a consensus command filters its records in process:
+    ``--device-filter``, or ``FGUMI_TPU_DEVICE_FILTER`` set to ``1``,
+    ``true``, ``on`` or ``force`` (any case), as the reference reads it.
+    Any other value, ``0``/``false``/``off`` too, requests nothing; with
+    ``--device-filter`` the fast engine's fused filter stays on the card
+    (the records are those of the reference's full-column route)."""
+    if getattr(args, "device_filter", False):
+        return True
+    return os.environ.get("FGUMI_TPU_DEVICE_FILTER", "").strip().lower() \
+        in ("1", "true", "on", "force")
 
 
 def filter_config_from_args(args) -> FilterConfig:
@@ -380,7 +394,7 @@ def make_filter_tap(args):
     """The :class:`HostFilterTap` of a consensus command's
     ``--device-filter``, or None when it was not asked for. Raises
     ValueError on bad thresholds (the CLI reports it and exits 2)."""
-    if not args.device_filter:
+    if not device_filter_requested(args):
         return None
     return HostFilterTap(filter_config_from_args(args),
                          args.filter_by_template)

@@ -341,6 +341,31 @@ class RecordBuilder:
         buf += np.asarray(quals, dtype=np.uint8).tobytes()
         return self
 
+    def start_mapped(self, name: bytes, flag: int, ref_id: int, pos: int,
+                     mapq: int, cigar, seq: bytes, quals,
+                     next_ref_id: int = -1, next_pos: int = -1,
+                     tlen: int = 0) -> "RecordBuilder":
+        """Begin a mapped record. `cigar` is [(op_char, length)] (builder.rs:356)."""
+        from .bai import reg2bin
+
+        buf = self._buf
+        buf.clear()
+        l_name = len(name) + 1
+        if l_name > 255:
+            raise ValueError(f"read name too long ({len(name)} bytes)")
+        n = len(seq)
+        ref_len = sum(ln for op, ln in cigar if op in _CONSUMES_REF) or 1
+        bin_ = reg2bin(pos, pos + ref_len) if pos >= 0 else UNMAPPED_BIN
+        buf += struct.pack("<iiBBHHHiiii", ref_id, pos, l_name, mapq, bin_,
+                           len(cigar), flag, n, next_ref_id, next_pos, tlen)
+        buf += name
+        buf += b"\x00"
+        for op, length in cigar:
+            buf += struct.pack("<I", (length << 4) | CIGAR_OPS.index(op))
+        buf += pack_seq(seq)
+        buf += np.asarray(quals, dtype=np.uint8).tobytes()
+        return self
+
     def tag_str(self, tag: bytes, value: bytes) -> "RecordBuilder":
         self._buf += tag + b"Z" + value + b"\x00"
         return self

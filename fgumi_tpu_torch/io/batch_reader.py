@@ -97,6 +97,31 @@ class RecordBatch:
         return [self.raw_record(int(i)) for i in indices]
 
 
+class BatchedRecordReader:
+    """A :class:`~.bam.BamReader` look-alike over :class:`BamBatchReader`:
+    it yields RawRecords, but inflates and finds record boundaries a batch
+    at a time (zipper's per-template engine reads through it, as the
+    reference's does)."""
+
+    def __init__(self, path_or_obj, target_bytes: int = 8 << 20):
+        self._r = BamBatchReader(path_or_obj, target_bytes=target_bytes)
+        self.header = self._r.header
+
+    def __iter__(self):
+        for batch in self._r:
+            for i in range(batch.n):
+                yield batch.raw_record(i)
+
+    def close(self):
+        self._r.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
 class _BatchAssembler:
     """Accumulate → boundary-scan → tail-carry loop: ``read_chunk()`` returns
     the next decoded uint8 array (empty at end of stream); iteration yields

@@ -152,6 +152,13 @@ def _declare(lib):
     lib.fgumi_merge_next.argtypes = [p, p, lg, p, lg, p]
     lib.fgumi_merge_close.restype = None
     lib.fgumi_merge_close.argtypes = [p]
+    lib.fgumi_tag_name_list.restype = None
+    lib.fgumi_tag_name_list.argtypes = [p, p, p, lg, lg, p, p]
+    lib.fgumi_cigar_strings.restype = lg
+    lib.fgumi_cigar_strings.argtypes = [p, p, p, lg, p, p]
+    lib.fgumi_rebuild_aux_records.restype = lg
+    lib.fgumi_rebuild_aux_records.argtypes = [p, p, p, p, lg, p, p, p, p, p,
+                                              p]
 
 
 def get_lib():

@@ -382,6 +382,64 @@ def umi_scan(buf: np.ndarray, off, length):
     return has_n, bases, ascii_
 
 
+def tag_name_list(buf: np.ndarray, aux_off, aux_end, max_per: int = 24):
+    """Per-record aux tag names: (names uint16 (n, max_per), counts int32);
+    counts[i] == -1 means too many or malformed (that template takes
+    the per-record path)."""
+    lib = get_lib()
+    n = len(aux_off)
+    names = np.empty((n, max_per), dtype=np.uint16)
+    counts = np.empty(n, dtype=np.int32)
+    ao = np.ascontiguousarray(aux_off, np.int64)
+    ae = np.ascontiguousarray(aux_end, np.int64)
+    lib.fgumi_tag_name_list(_addr(buf), _addr(ao), _addr(ae), n, max_per,
+                            _addr(names), _addr(counts))
+    return names, counts
+
+
+def cigar_strings(buf: np.ndarray, cigar_off, n_cigar):
+    """Batched CIGAR rendering: (blob bytes, (n+1,) int64 offsets)."""
+    lib = get_lib()
+    n = len(n_cigar)
+    nc = np.ascontiguousarray(n_cigar, np.int32)
+    co = np.ascontiguousarray(cigar_off, np.int64)
+    cap = int(np.maximum(11 * nc.astype(np.int64), 1).sum())
+    out = np.empty(cap, dtype=np.uint8)
+    out_off = np.empty(n + 1, dtype=np.int64)
+    rc = lib.fgumi_cigar_strings(_addr(buf), _addr(co), _addr(nc), n,
+                                 _addr(out), _addr(out_off))
+    if rc < 0:
+        raise ValueError("invalid CIGAR op code")
+    return out, out_off
+
+
+def rebuild_aux_records(buf: np.ndarray, data_off, aux_off, data_end,
+                        drop: np.ndarray, drop_off, appends: np.ndarray,
+                        app_off):
+    """Rebuild records with filtered aux + appended TLV bytes; returns
+    (wire blob bytes incl. block_size prefixes, (n+1,) int64 offsets) or
+    None when a record is malformed (the caller edits per record, as
+    the reference does)."""
+    lib = get_lib()
+    n = len(data_off)
+    do = np.ascontiguousarray(data_off, np.int64)
+    ao = np.ascontiguousarray(aux_off, np.int64)
+    de = np.ascontiguousarray(data_end, np.int64)
+    dro = np.ascontiguousarray(drop_off, np.int64)
+    apo = np.ascontiguousarray(app_off, np.int64)
+    drop = np.ascontiguousarray(drop, np.uint16)
+    appends = np.ascontiguousarray(appends, np.uint8)
+    cap = int((de - do).sum() + (apo[-1] - apo[0]) + 4 * n)
+    out = np.empty(max(cap, 1), dtype=np.uint8)
+    out_pos = np.empty(n + 1, dtype=np.int64)
+    total = lib.fgumi_rebuild_aux_records(
+        _addr(buf), _addr(do), _addr(ao), _addr(de), n, _addr(drop),
+        _addr(dro), _addr(appends), _addr(apo), _addr(out), _addr(out_pos))
+    if total < 0:
+        return None
+    return out[:total], out_pos
+
+
 def concat_spans(srcs, src_id, off, length):
     """Concatenate spans from up to 8 source uint8 arrays: returns
     (blob uint8, (n+1,) int64 offsets). Zero-length spans are legal."""

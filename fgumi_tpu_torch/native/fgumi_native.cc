@@ -2731,3 +2731,155 @@ long fgumi_build_codec_records(
 }
 
 }  // extern "C"
+
+// The zipper's and correct's batch passes (record_edit.TagEditor's
+// native form).
+extern "C" {
+
+// Per-record aux tag names (u16 little-endian pairs): the zipper's batch
+// engine builds per-record drop lists from the unmapped record's tag names
+// (zipper.rs merge_raw removes every same-named mapped tag before copying).
+// counts[i] = names found, or -1 when > max_per or malformed (the caller
+// takes that template down the per-record path).
+void fgumi_tag_name_list(const uint8_t* buf, const int64_t* aux_off,
+                         const int64_t* aux_end, long n, long max_per,
+                         uint16_t* out_names, int32_t* counts) {
+  for (long i = 0; i < n; ++i) {
+    uint16_t* names = out_names + i * max_per;
+    int64_t off = aux_off[i];
+    const int64_t end = aux_end[i];
+    long found = 0;
+    bool bad = false;
+    while (off + 3 <= end) {
+      const uint16_t name = static_cast<uint16_t>(buf[off]) |
+                            (static_cast<uint16_t>(buf[off + 1]) << 8);
+      const uint8_t typ = buf[off + 2];
+      off += 3;
+      int64_t size = tag_fixed_size(typ);
+      if (size == 0) {
+        if (typ == 'Z' || typ == 'H') {
+          const uint8_t* nul = static_cast<const uint8_t*>(
+              std::memchr(buf + off, 0, static_cast<size_t>(end - off)));
+          if (nul == nullptr) { bad = true; break; }
+          size = (nul - (buf + off)) + 1;
+        } else if (typ == 'B') {
+          if (off + 5 > end) { bad = true; break; }
+          const int64_t esize = tag_fixed_size(buf[off]);
+          if (esize == 0) { bad = true; break; }
+          size = 5 + esize * static_cast<int64_t>(read_u32(buf + off + 1));
+        } else {
+          bad = true;
+          break;
+        }
+      }
+      if (off + size > end) { bad = true; break; }
+      if (found >= max_per) { bad = true; break; }
+      names[found++] = name;
+      off += size;
+    }
+    counts[i] = bad ? -1 : static_cast<int32_t>(found);
+  }
+}
+
+// CIGAR strings for a whole batch ("*" for zero ops). Caller sizes out to
+// sum(max(11 * n_cigar, 1)). Returns 0, or -1 on an invalid op code.
+long fgumi_cigar_strings(const uint8_t* buf, const int64_t* cigar_off,
+                         const int32_t* n_cigar, long n, uint8_t* out,
+                         int64_t* out_off) {
+  static const char kOps[] = "MIDNSHP=X";
+  int64_t o = 0;
+  out_off[0] = 0;
+  for (long i = 0; i < n; ++i) {
+    if (n_cigar[i] == 0) {
+      out[o++] = '*';
+    } else {
+      const uint8_t* c = buf + cigar_off[i];
+      for (int32_t k = 0; k < n_cigar[i]; ++k) {
+        const uint32_t v = read_u32(c + 4 * k);
+        const uint32_t op = v & 0xF;
+        if (op > 8) return -1;
+        uint32_t len = v >> 4;
+        char digits[10];
+        int nd = 0;
+        do {
+          digits[nd++] = static_cast<char>('0' + len % 10);
+          len /= 10;
+        } while (len != 0);
+        while (nd > 0) out[o++] = digits[--nd];
+        out[o++] = kOps[op];
+      }
+    }
+    out_off[i + 1] = o;
+  }
+  return 0;
+}
+
+// Rebuild records with edited aux regions, in one pass (the native form of
+// record_edit.TagEditor.finish: [prefix][surviving originals in order]
+// [append blob]). drop lists are per-record u16 tag-name spans; appends are
+// pre-encoded TLV bytes. Output records carry their block_size prefixes
+// (write_serialized form), written contiguously; out_pos gets n+1 offsets.
+// Returns total bytes, or -(i+1) on a malformed record i (the caller
+// takes the per-record editor, as the reference does).
+long fgumi_rebuild_aux_records(
+    const uint8_t* buf, const int64_t* data_off, const int64_t* aux_off,
+    const int64_t* data_end, long n, const uint16_t* drop,
+    const int64_t* drop_off, const uint8_t* appends, const int64_t* app_off,
+    uint8_t* out, int64_t* out_pos) {
+  int64_t o = 0;
+  out_pos[0] = 0;
+  for (long i = 0; i < n; ++i) {
+    uint8_t* rec0 = out + o + 4;
+    uint8_t* dst = rec0;
+    const int64_t pre = aux_off[i] - data_off[i];
+    memcpy(dst, buf + data_off[i], static_cast<size_t>(pre));
+    dst += pre;
+    const uint16_t* dr = drop + drop_off[i];
+    const long nd = static_cast<long>(drop_off[i + 1] - drop_off[i]);
+    int64_t off = aux_off[i];
+    const int64_t end = data_end[i];
+    while (off + 3 <= end) {
+      const int64_t entry0 = off;
+      const uint16_t name = static_cast<uint16_t>(buf[off]) |
+                            (static_cast<uint16_t>(buf[off + 1]) << 8);
+      const uint8_t typ = buf[off + 2];
+      off += 3;
+      int64_t size = tag_fixed_size(typ);
+      if (size == 0) {
+        if (typ == 'Z' || typ == 'H') {
+          const uint8_t* nul = static_cast<const uint8_t*>(
+              std::memchr(buf + off, 0, static_cast<size_t>(end - off)));
+          if (nul == nullptr) return -(i + 1);
+          size = (nul - (buf + off)) + 1;
+        } else if (typ == 'B') {
+          if (off + 5 > end) return -(i + 1);
+          const int64_t esize = tag_fixed_size(buf[off]);
+          if (esize == 0) return -(i + 1);
+          size = 5 + esize * static_cast<int64_t>(read_u32(buf + off + 1));
+        } else {
+          return -(i + 1);
+        }
+      }
+      if (off + size > end) return -(i + 1);
+      off += size;
+      bool dropped = false;
+      for (long d = 0; d < nd; ++d) {
+        if (dr[d] == name) { dropped = true; break; }
+      }
+      if (!dropped) {
+        memcpy(dst, buf + entry0, static_cast<size_t>(off - entry0));
+        dst += off - entry0;
+      }
+    }
+    const int64_t alen = app_off[i + 1] - app_off[i];
+    memcpy(dst, appends + app_off[i], static_cast<size_t>(alen));
+    dst += alen;
+    const int64_t rec_len = dst - rec0;
+    put_u32(out + o, static_cast<uint32_t>(rec_len));
+    o += 4 + rec_len;
+    out_pos[i + 1] = o;
+  }
+  return o;
+}
+
+}  // extern "C"

@@ -18,7 +18,8 @@ import numpy as np
 from .constants import (BASE_TO_CODE, CODE_COMPLEMENT, CODE_TO_BASE,
                         reverse_complement_bytes)
 from .io.bam import (BamHeader, BamWriter, FLAG_FIRST, FLAG_LAST,
-                     FLAG_MATE_REVERSE, FLAG_PAIRED, FLAG_REVERSE, pack_seq)
+                     FLAG_MATE_REVERSE, FLAG_PAIRED, FLAG_REVERSE, RecordBuilder,
+                     pack_seq)
 
 
 def _build_mapped_record(name, flag, ref_id, pos, mapq, cigar_ops, seq, quals,
@@ -552,3 +553,127 @@ def simulate_fastq_reads(r1_path: str, r2_path: str, truth_path: str = None,
         if truth_f:
             truth_f.close()
     return n_pairs
+
+
+def simulate_consensus_bam(path: str, truth_path: str = None,
+                           num_reads: int = 1000, read_length: int = 150,
+                           min_depth: int = 1, max_depth: int = 10,
+                           depth_mean: float = 5.0, depth_stddev: float = 2.0,
+                           error_rate_mean: float = 0.01,
+                           per_base_tags: bool = True, seed: int = 42,
+                           ref_name: str = "chr1",
+                           ref_length: int = 10_000_000):
+    """Unmapped query-grouped BAM shaped like simplex consensus output
+    (cD/cM/cE + cd/ce per-base tags), the `filter` command's input (the
+    reference's simulate consensus-reads, consensus_reads.rs:43-90;
+    unmapped like the pre-zipper consensus stream). Returns records
+    written; every output is published only when complete."""
+    from .utils.atomic import discard_output, open_output
+
+    del ref_name, ref_length  # consensus records are unmapped here
+    rng = np.random.default_rng(seed)
+    header = BamHeader(
+        text="@HD\tVN:1.6\tSO:unsorted\tGO:query\n"
+             "@RG\tID:A\tSM:sample\tLB:lib\n",
+        ref_names=[], ref_lengths=[])
+    truth_f = open_output(truth_path, "w") if truth_path else None
+    n = 0
+    try:
+        if truth_f:
+            truth_f.write("name\tdepth\terror_rate\n")
+        with BamWriter(path, header) as w:
+            for i in range(num_reads):
+                depth = int(np.clip(round(rng.normal(depth_mean, depth_stddev)),
+                                    min_depth, max_depth))
+                err = float(np.clip(rng.exponential(error_rate_mean), 0, 0.5))
+                seq = CODE_TO_BASE[rng.integers(0, 4, size=read_length)].tobytes()
+                quals = np.clip(rng.integers(25, 60, size=read_length), 2,
+                                93).astype(np.uint8)
+                name = f"fgumi:{i}".encode()
+                per_base = np.maximum(
+                    depth - (rng.random(read_length) < 0.2), 1).astype(np.int16)
+                errors = (rng.random(read_length) < err).astype(np.int16)
+                b = RecordBuilder().start_unmapped(name, 0x4, seq, quals)
+                b.tag_str(b"RG", b"A")
+                b.tag_str(b"MI", str(i).encode())
+                b.tag_str(b"RX", _random_umi(rng, 8))
+                b.tag_int(b"cD", depth)
+                b.tag_int(b"cM", int(per_base.min()))
+                b.tag_float(b"cE", err)
+                if per_base_tags:
+                    b.tag_array_i16(b"cd", per_base)
+                    b.tag_array_i16(b"ce", errors)
+                w.write_record_bytes(b.finish())
+                n += 1
+                if truth_f:
+                    truth_f.write(f"{name.decode()}\t{depth}\t{err:.6f}\n")
+    except BaseException:
+        if truth_f:
+            discard_output(truth_f)  # never commit a partial truth table
+        raise
+    else:
+        if truth_f:
+            truth_f.close()
+    return n
+
+
+def simulate_correct_reads(path: str, includelist_path: str,
+                           truth_path: str = None, num_reads: int = 10000,
+                           num_umis: int = 1000, umi_length: int = 8,
+                           read_length: int = 100, max_errors: int = 2,
+                           base_quality: int = 35, seed: int = 42):
+    """Unmapped BAM with RX UMIs drawn from a generated includelist, plus the
+    includelist file and a truth TSV (the reference's simulate
+    correct-reads, correct_reads.rs:36-76). Returns records written."""
+    from .utils.atomic import discard_output, open_output
+
+    rng = np.random.default_rng(seed)
+    umis = set()
+    while len(umis) < num_umis:
+        umis.add(_random_umi(rng, umi_length))
+    whitelist = sorted(umis)
+    with open(includelist_path, "w") as f:
+        for u in whitelist:
+            f.write(u.decode() + "\n")
+    header = BamHeader(text="@HD\tVN:1.6\tSO:unsorted\n"
+                            "@RG\tID:A\tSM:sample\tLB:lib\n",
+                       ref_names=[], ref_lengths=[])
+    truth_f = open_output(truth_path, "w") if truth_path else None
+    try:
+        if truth_f:
+            truth_f.write("name\ttrue_umi\tobserved_umi\terrors\n")
+        with BamWriter(path, header) as w:
+            for i in range(num_reads):
+                true_umi = whitelist[int(rng.integers(len(whitelist)))]
+                n_err = int(rng.integers(0, min(max_errors,
+                                                umi_length) + 1))
+                if n_err:
+                    # exact error count at random positions
+                    codes = BASE_TO_CODE[
+                        np.frombuffer(true_umi, np.uint8)].copy()
+                    pos = rng.choice(umi_length, size=n_err, replace=False)
+                    codes[pos] = (codes[pos] + rng.integers(1, 4, n_err)) % 4
+                    observed = CODE_TO_BASE[codes].tobytes()
+                else:
+                    observed = true_umi
+                seq = CODE_TO_BASE[
+                    rng.integers(0, 4, size=read_length)].tobytes()
+                quals = np.clip(base_quality + rng.integers(-5, 6,
+                                                            read_length),
+                                2, 40)
+                b = RecordBuilder().start_unmapped(
+                    f"r{i}".encode(), 0x4, seq, quals.astype(np.uint8))
+                b.tag_str(b"RG", b"A")
+                b.tag_str(b"RX", observed)
+                w.write_record_bytes(b.finish())
+                if truth_f:
+                    truth_f.write(f"r{i}\t{true_umi.decode()}\t"
+                                  f"{observed.decode()}\t{n_err}\n")
+    except BaseException:
+        if truth_f:
+            discard_output(truth_f)  # never commit a partial truth table
+        raise
+    else:
+        if truth_f:
+            truth_f.close()
+    return num_reads

@@ -233,3 +233,18 @@ def make_batch_keys_fn(order: str, header, subsort: str = "natural"):
                 np.diff(out_off).astype(np.int32))
 
     return tc_keys
+
+
+def iter_keyed_records(path_or_obj, batch_keys_fn):
+    """(packed key bytes, record wire bytes) per record, the keys extracted
+    a batch at a time by ``batch_keys_fn`` (:func:`make_batch_keys_fn`):
+    the k-way merge's input stream (``merge``)."""
+    from ..io.batch_reader import BamBatchReader
+
+    with BamBatchReader(path_or_obj) as br:
+        for batch in br:
+            blob, koff, klen = batch_keys_fn(batch)
+            buf = batch.buf
+            do, de = batch.data_off, batch.data_end
+            for i in range(batch.n):
+                yield blob[koff[i]:koff[i] + klen[i]], bytes(buf[do[i]:de[i]])

@@ -39,8 +39,11 @@ about 2,400 distinct UMIs so the group stage reaches K4), ``duplex``
 (both engines, and ``--device-filter`` against ``duplex | filter``; the
 fast engine through K1-r and K5) and ``codec`` (both engines, K1 and K6)
 on the card; ``dedup`` (both engines, K4 once a position group) against
-``--device cpu``, and an injected out-of-memory on the K1 and K1-f routes
-(one halving, both halves launched, the clean run's records).
+``--device cpu``, an injected out-of-memory on the K1 and K1-f routes
+(one halving, both halves launched, the clean run's records), and the
+mapped front half (``correct`` and ``zipper`` on both engines, ``fastq``,
+``chip_smoke.stand_in_align``, ``sort``, ``group``) ending in ``simplex``
+on the card against ``--device cpu``.
 
 Tolerances: depth and errors exact; winner and qual (K1), and the stats
 columns 0-5 and the masked columns within the read length (K1-f), exact
@@ -1225,3 +1228,46 @@ def test_rejects_entry_point_on_cuda(cuda_dev, tmp_path, command):
         got[dev] = (_records(tmp_path / f"{dev}.bam"),
                     _records(tmp_path / f"{dev}.r.bam"))
     assert got["cuda"] == got["cpu"] and got["cuda"][0] and got["cuda"][1]
+
+
+def test_mapped_front_half_entry_points_on_cuda(cuda_dev, tmp_path):
+    """The mapped front half on the card: ``simulate correct-reads`` and
+    ``fastq-reads`` from its list, ``extract``, ``correct`` (batch engine
+    and ``--classic``: records, rejects and metrics identical), ``fastq``,
+    ``chip_smoke.stand_in_align``, ``zipper`` (both engines identical),
+    template-coordinate ``sort``, ``group`` on ``cuda`` and ``simplex`` on
+    ``cuda`` (K1 launched) against ``--device cpu``."""
+    import chip_smoke
+
+    _run_cli(tmp_path, "simulate", "correct-reads", "-o", "cr.bam", "-i",
+             "list.txt", "-n", "3000", "--num-umis", "200")
+    got = {}
+    for engine in ([], ["--classic"]):
+        tag = "classic" if engine else "fast"
+        _run_cli(tmp_path, "correct", "-i", "cr.bam", "-o", f"c.{tag}.bam",
+                 "-U", "list.txt", "-r", f"r.{tag}.bam", "-m",
+                 f"m.{tag}.tsv", *engine)
+        got[tag] = (_records(tmp_path / f"c.{tag}.bam"),
+                    _records(tmp_path / f"r.{tag}.bam"),
+                    (tmp_path / f"m.{tag}.tsv").read_bytes())
+    assert got["fast"][0] and got["fast"] == got["classic"]
+    _run_cli(tmp_path, "simulate", "fastq-reads", "-1", "r1.fq.gz", "-2",
+             "r2.fq.gz", "--num-families", "400", "--includelist",
+             "list.txt")
+    _run_cli(tmp_path, "extract", "-i", "r1.fq.gz", "r2.fq.gz", "-r",
+             "8M+T", "+T", "--sample", "s", "--library", "l", "-o", "u.bam")
+    _run_cli(tmp_path, "correct", "-i", "u.bam", "-o", "uc.bam", "-U",
+             "list.txt")
+    _run_cli(tmp_path, "fastq", "-i", "uc.bam", "-o", "reads.fq")
+    chip_smoke.stand_in_align(str(tmp_path / "reads.fq"),
+                              str(tmp_path / "aligned.bam"))
+    for engine in ([], ["--classic"]):
+        _run_cli(tmp_path, "zipper", "-i", "aligned.bam", "-u", "uc.bam",
+                 "-o", f"z{len(engine)}.bam", *engine)
+    assert _records(tmp_path / "z0.bam") == _records(tmp_path / "z1.bam")
+    _run_cli(tmp_path, "sort", "-i", "z0.bam", "-o", "s.bam", "--order",
+             "template-coordinate")
+    _run_cli(tmp_path, "group", "-i", "s.bam", "-o", "in.bam", "-s",
+             "adjacency", "--device", "cuda")
+    stats = _cuda_vs_cpu(tmp_path, ["--min-reads", "1"])
+    assert stats["launches"]["consensus_wire_full"] >= 1
