@@ -7,7 +7,11 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 (``python3 chip_smoke.py --phase mapped`` runs the mapped phase below alone:
 its inputs and ``fixed5_1M``, the ``fixed5_1M --device-filter`` run it
-compares with, then K1-f and K1 at those runs' batches and the last lines.)
+compares with, then K1-f and K1 at those runs' batches and the last lines.
+``python3 chip_smoke.py --phase qc`` runs the qc phase alone: first its own
+inputs, ``mapped_chain_400k`` and the fast ``group --strategy paired`` of
+``amplicon_paired`` (``cuda`` and ``cpu``), then the phase, then K4 and K1
+at those runs' largest launch and batch and the last lines.)
 
 Phases (any failed check exits nonzero; nothing is caught and passed over):
 
@@ -95,12 +99,12 @@ Phases (any failed check exits nonzero; nothing is caught and passed over):
    walls of ``--stats-json``, and every run without ``--device-filter``
    must have run its filter stage on the batch engine (``FastFilter``);
    the staged run keeps its intermediate BAMs (``--keep-intermediates``);
-   - ``filter_400k``: ``filter`` (the batch engine) and ``filter
-     --classic`` (per record), each with ``--rejects``, on that staged
-     run's consensus BAM (~80,000 records) with the pipeline's filter
-     options: records, rejects and counts identical between the engines,
-     the kept records identical to the fused pipeline's output, both walls
-     printed;
+   - ``filter_400k``: ``filter`` (the batch engine) with ``--rejects`` on
+     that staged run's consensus BAM (~80,000 records) with the pipeline's
+     filter options, the kept records identical to the fused pipeline's
+     output; then the batch engine and ``filter --classic`` (per record)
+     on its first 20,000 records, cut at a template: records, rejects and
+     counts identical between the engines, both walls printed;
    - ``sort_amplicon``: ``sort`` of ``amplicon_group``'s input (384,000
      mapped reads) with spill runs forced (``--max-records-in-ram
      40000``): ``--order coordinate --write-index`` at ``--threads 1`` and
@@ -219,16 +223,19 @@ Phases (any failed check exits nonzero; nothing is caught and passed over):
    workflow, one run at a time so that no wall shares the host with another
    run of this script: ``correct_1M`` (the port's ``simulate correct-reads
    -n 1000000 --num-umis 1000 -u 8 -l 100 --max-errors 2 --seed 52``;
-   ``correct -U <list> -m -r`` on the batch engine and then ``--classic``,
-   records, rejects and metrics identical; the share of reads whose
-   corrected UMI is the truth table's), then ``mapped_chain_400k``
+   ``correct -U <list> -m -r`` on the batch engine, then on the first
+   100,000 reads (cut at a template) on the batch engine and ``--classic``,
+   records, rejects and metrics of those identical; the share of reads
+   whose corrected UMI is the truth table's), then ``mapped_chain_400k``
    (``simulate fastq-reads --num-families 40000 --family-size 5
    --read-length 100 --includelist <that list> --seed 53``,
    then ``extract -r 8M+T +T``, ``correct -U <list>``, ``fastq``, a stand-in
    aligner written here (:func:`stand_in_align`: ten families a position
    over four contigs, R1 forward, R2 reverse, a quarter soft-clipped, some
    supplementary records and unmapped mates; a query-grouped mapped BAM),
-   ``zipper`` on both engines (identical), ``sort --order
+   ``zipper`` (the batch engine; ``--classic`` on the first 50,000 aligned
+   records, cut at a template, equal to the batch engine's first records),
+   ``sort --order
    template-coordinate`` of the whole and of each half, ``merge`` of the
    sorted halves (equal to the sorted whole), ``group -s adjacency``,
    ``simplex --min-reads 1`` on ``cuda`` (K1 launched) and then on ``cpu``
@@ -237,7 +244,30 @@ Phases (any failed check exits nonzero; nothing is caught and passed over):
    ``fixed5_1M`` under ``FGUMI_TPU_DEVICE_FILTER=1`` without
    ``--device-filter`` and ``=0`` with it, each with the ``fixed5_1M_fused``
    run's records and launches (K1-f: ``=0`` requests nothing, and the flag
-   keeps the fused filter on the card);
+   keeps the fused filter on the card); then the ``qc`` phase, the QC and
+   post-consensus commands on inputs made above, one at a time, each timed
+   on a ``qc`` line (host commands: every launch count stays 0 across it):
+   ``clip -c soft --clip-overlapping-reads --clip-bases-past-mate -m`` on
+   the chain's query-grouped ``zipped.bam`` (276,099 records; the
+   reference a seeded FASTA of the stand-in aligner's four 1,000,000-base
+   contigs, written with the port's ``write_fasta``) and ``clip -c hard -H
+   -a --read-one-five-prime 3 --read-two-three-prime 2 -m`` on its first
+   50,000 records cut at a template (:func:`split_at_template`), each with
+   the records out the records in, name for name and in order, the
+   templates the command counted the input's, and the soft run's
+   overlap-clipped templates above 0; ``simplex-metrics --min-reads 3`` on
+   the chain's ``grouped.bam``; ``duplex-metrics --duplex-umi-counts`` on
+   the fast paired ``group`` output of ``amplicon_paired`` (144,000 reads,
+   MI ``/A`` and ``/B``), plain and with a BED of half its 8 positions
+   (fewer templates, not none; duplexes found); ``downsample -f 0.5 --seed
+   7 --rejects --histogram-kept --histogram-rejected`` on ``grouped.bam``
+   (kept and rejected records together the input, family by family; the
+   histograms sum to its families) and ``-f 1.0`` (the input's records);
+   ``review`` with ``-c`` the grouped BAM sorted by coordinate with its BAI
+   (raw reads with MI standing in for a consensus), ``-g`` the grouped BAM
+   and a VCF of 1,000 seeded SNV sites at covered positions with a sample
+   column, run with the BAI beside the BAM (the indexed pass) and without
+   it (the streaming pass), the three outputs identical;
 4. kernels at the main-path shapes the runs reported (the fast runs' largest
    batch; the simplex stage's largest batch of each ``cuda`` pipeline run:
    K1 on fused and ``--no-fuse`` ``pipeline_400k`` and on
@@ -286,8 +316,10 @@ Exits 2 without a result when CUDA is unavailable or the port is missing.
 
 import concurrent.futures as cf
 import json
+import logging
 import multiprocessing
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -2098,25 +2130,31 @@ def run_filter(cons, out, engine):
 
 
 def filter_phase(p400, work):
-    """``filter_400k``: the batch engine and ``--classic`` on the consensus
-    BAM of ``pipeline_400k`` (the staged run's ``cons.bam``, whose records
-    the fused run's simplex stage streams alike): records, rejects and
-    counts identical between the engines, and the kept records identical
-    to the pipeline's output."""
+    """``filter_400k``: the batch engine on the consensus BAM of
+    ``pipeline_400k`` (the staged run's ``cons.bam``, whose records the
+    fused run's simplex stage streams alike), its kept records identical
+    to the pipeline's output; then the batch engine and ``--classic`` on
+    its first ``FILTER_CLASSIC_RECORDS`` records (cut at a template):
+    records, rejects and counts identical between the engines."""
     cons = os.path.join(intermediates_dir("pipeline_400k", work), "cons.bam")
     n_cons = len(records(cons))
+    head = os.path.join(work, "filter_400k_head.bam")
+    n_head = split_at_template(cons, head, None, cut=FILTER_CLASSIC_RECORDS)
     runs = {}
-    for engine in ("fast", "classic"):
-        out = os.path.join(work, f"filter_400k_{engine}.bam")
-        st, wall = run_filter(cons, out, engine)
-        runs[engine] = (out, st, wall)
-    (fo, fs, fw), (co, cs, cw) = runs["fast"], runs["classic"]
+    for label, engine, src in (("fast", "fast", cons),
+                               ("fast_head", "fast", head),
+                               ("classic", "classic", head)):
+        out = os.path.join(work, f"filter_400k_{label}.bam")
+        st, wall = run_filter(src, out, engine)
+        runs[label] = (out, st, wall)
+    (fo, fs, fw), (ho, hs, _), (co, cs, cw) = \
+        runs["fast"], runs["fast_head"], runs["classic"]
     kept = records(fo)
-    check(kept == records(co), "filter_400k: fast and --classic records "
-                               "differ")
-    check(records(fo + ".rejects.bam") == records(co + ".rejects.bam"),
+    check(records(ho) == records(co), "filter_400k: fast and --classic "
+                                      "records differ")
+    check(records(ho + ".rejects.bam") == records(co + ".rejects.bam"),
           "filter_400k: fast and --classic rejects differ")
-    check({k: fs[k] for k in ("total", "passed", "failed", "bases_masked",
+    check({k: hs[k] for k in ("total", "passed", "failed", "bases_masked",
                               "rejection_reasons")}
           == {k: cs[k] for k in ("total", "passed", "failed", "bases_masked",
                                  "rejection_reasons")},
@@ -2129,15 +2167,18 @@ def filter_phase(p400, work):
                "kept": fs["passed"], "rejected": fs["failed"],
                "bases_masked": fs["bases_masked"],
                "fast_wall_s": fw, "fast_own_wall_s": fs["wall_s"],
+               "classic_records": n_head,
                "classic_wall_s": cw, "classic_own_wall_s": cs["wall_s"],
-               "speedup": cw / fw,
                "fast_records_per_s": n_cons / fw,
-               "classic_records_per_s": n_cons / cw,
+               "classic_records_per_s": n_head / cw,
                "records_identical": True}
     print("e2e " + json.dumps(summary), flush=True)
     return summary
 
 
+# filter_400k's --classic run (and the batch engine's run it is held to)
+# takes its first records, cut at a template, to keep the script in its limit
+FILTER_CLASSIC_RECORDS = 20_000
 # sort_amplicon: (label, flags) of each run; spills forced so the spill
 # workers and the merge's prefetch have runs to work on
 SORT_SPILL = ["--max-records-in-ram", "40000"]
@@ -3493,6 +3534,11 @@ def resilience_phase(paths, work, e2e, duplexes):
 # in this script in the aligner's place; and correct at a sample's size
 CORRECT_SIM = ["-n", "1000000", "--num-umis", "1000", "-u", "8", "-l", "100",
                "--max-errors", "2", "--seed", "52"]
+# correct_1M's --classic run (and the batch engine's run it is held to)
+# takes its first reads, cut at a template, to keep the script in its limit
+CORRECT_CLASSIC_READS = 100_000
+# and the chain's zipper --classic run its first aligned records
+ZIPPER_CLASSIC_RECORDS = 50_000
 MAPPED_SIM = ["--num-families", "40000", "--family-size", "5",
               "--read-length", "100", "--seed", "53"]
 # the stand-in aligner's reference: four contigs, ten families a position
@@ -3605,17 +3651,27 @@ def stand_in_align(fastq_path, out_bam, read_length: int = 100) -> int:
     return n
 
 
-def split_at_template(src, dst_a, dst_b) -> int:
-    """``src`` in two consecutive halves, cut between two templates;
-    returns the records of the first."""
+def split_at_template(src, dst_a, dst_b, cut=None) -> int:
+    """``src`` in two consecutive parts, cut between two templates at the
+    first template boundary from record ``cut`` on (default: half the
+    records); ``dst_b`` None writes the first part alone. Returns the
+    records of the first."""
     from fgumi_tpu_torch.io.bam import BamReader, BamWriter
 
     with BamReader(src) as r:
-        header, recs = r.header, [(rec.name, rec.data) for rec in r]
-    cut = len(recs) // 2
+        header, recs = r.header, []
+        for rec in r:
+            # the first part alone: stop at the first template past the cut
+            if dst_b is None and len(recs) >= cut \
+                    and rec.name != recs[-1][0]:
+                break
+            recs.append((rec.name, rec.data))
+    cut = len(recs) // 2 if cut is None else min(cut, len(recs))
     while 0 < cut < len(recs) and recs[cut][0] == recs[cut - 1][0]:
         cut += 1
     for path, part in ((dst_a, recs[:cut]), (dst_b, recs[cut:])):
+        if path is None:
+            continue
         with BamWriter(path, header) as w:
             for _, data in part:
                 w.write_record_bytes(data)
@@ -3632,25 +3688,31 @@ def _tag_values(path, tag: bytes) -> dict:
 
 
 def correct_1m_case(paths, work) -> dict:
-    """``correct -U <list> -m -r`` on ``correct_1M``, the batch engine and
-    then ``--classic``: records, rejects and metrics identical; the share
-    of reads whose corrected UMI is the true one (the generator's truth
-    table). Prints the ``mapped`` line."""
+    """``correct -U <list> -m -r`` on ``correct_1M`` on the batch engine,
+    then on its first ``CORRECT_CLASSIC_READS`` reads on the batch engine
+    and ``--classic``: records, rejects and metrics of those two
+    identical; the share of reads whose corrected UMI is the true one (the
+    generator's truth table) over the whole. Prints the ``mapped``
+    line."""
     inp, wl, _ = paths["correct_1M"]
+    head = os.path.join(work, "correct_1M.head.bam")
+    n_head = split_at_template(inp, head, None, cut=CORRECT_CLASSIC_READS)
     runs, walls = {}, {}
-    for engine in ("fast", "classic"):
+    for engine, src in (("fast", inp), ("fast_head", head),
+                        ("classic", head)):
         runs[engine] = out = [os.path.join(work, f"correct_1M.{engine}.{x}")
                               for x in ("bam", "rej.bam", "tsv")]
         walls[engine] = _cli_wall(
-            ["correct", "-i", inp, "-o", out[0], "-r", out[1], "-m", out[2],
+            ["correct", "-i", src, "-o", out[0], "-r", out[1], "-m", out[2],
              "-U", wl] + (["--classic"] if engine == "classic" else []))
-    fast, classic = runs["fast"], runs["classic"]
+    fast, fast_head, classic = runs["fast"], runs["fast_head"], \
+        runs["classic"]
     kept, rejected = records(fast[0]), records(fast[1])
-    check(kept == records(classic[0]),
+    check(records(fast_head[0]) == records(classic[0]),
           "correct_1M: fast and --classic records differ")
-    check(rejected == records(classic[1]),
+    check(records(fast_head[1]) == records(classic[1]),
           "correct_1M: fast and --classic rejects differ")
-    with open(fast[2], "rb") as a, open(classic[2], "rb") as b:
+    with open(fast_head[2], "rb") as a, open(classic[2], "rb") as b:
         check(a.read() == b.read(),
               "correct_1M: fast and --classic metrics differ")
     true_umi = {}
@@ -3670,8 +3732,10 @@ def correct_1m_case(paths, work) -> dict:
                "kept_true_share": right / max(len(kept), 1),
                "fast_wall_s": walls["fast"],
                "fast_reads_per_s": n / walls["fast"],
+               "classic_reads": n_head,
+               "fast_head_wall_s": walls["fast_head"],
                "classic_wall_s": walls["classic"],
-               "classic_reads_per_s": n / walls["classic"],
+               "classic_reads_per_s": n_head / walls["classic"],
                "identical": True}
     print("mapped " + json.dumps(summary), flush=True)
     return summary
@@ -3679,8 +3743,8 @@ def correct_1m_case(paths, work) -> dict:
 
 def mapped_chain_case(paths, work) -> dict:
     """``mapped_chain_400k``, one run at a time: extract, correct, fastq,
-    the stand-in aligner, zipper (batch engine, then ``--classic``:
-    identical), sort template-coordinate of the whole and of each half and
+    the stand-in aligner, zipper (batch engine, then ``--classic`` on its
+    first ``ZIPPER_CLASSIC_RECORDS`` aligned records: identical), sort template-coordinate of the whole and of each half and
     merge of the halves (equal to the whole), group, simplex on ``cuda``
     (K1 launched) and then on ``cpu`` (no launch; every count zeroed just
     before each, read just after), identical, and filter. Prints a
@@ -3692,7 +3756,8 @@ def mapped_chain_case(paths, work) -> dict:
                                     "not correct_1M's")
     p = {k: os.path.join(work, f"mapped.{k}") for k in (
         "unmapped.bam", "corrected.bam", "reads.fq", "aligned.bam",
-        "zipped.bam", "zipped_classic.bam", "half_a.bam", "half_b.bam",
+        "zipped.bam", "aligned_head.bam", "corrected_head.bam",
+        "zipped_classic.bam", "half_a.bam", "half_b.bam",
         "sorted.bam", "sorted_a.bam", "sorted_b.bam", "merged.bam",
         "grouped.bam", "cons.cuda.bam", "cons.cpu.bam", "filtered.bam")}
     steps = {}
@@ -3712,12 +3777,29 @@ def mapped_chain_case(paths, work) -> dict:
     t0 = time.monotonic()
     n_aln = stand_in_align(p["reads.fq"], p["aligned.bam"])
     step("stand_in_align", time.monotonic() - t0, n_corr)
-    zipper = ["zipper", "-i", p["aligned.bam"], "-u", p["corrected.bam"]]
-    step("zipper", _cli_wall([*zipper, "-o", p["zipped.bam"]]), n_aln)
-    step("zipper_classic", _cli_wall([*zipper, "-o", p["zipped_classic.bam"],
-                                      "--classic"]), n_aln)
+    step("zipper", _cli_wall(["zipper", "-i", p["aligned.bam"], "-u",
+                              p["corrected.bam"], "-o", p["zipped.bam"]]),
+         n_aln)
     zipped = records(p["zipped.bam"])
-    check(len(zipped) == n_aln and zipped == records(p["zipped_classic.bam"]),
+    check(len(zipped) == n_aln, f"mapped_chain_400k: zipper wrote "
+                                f"{len(zipped)} of {n_aln} records")
+    # --classic on the first ZIPPER_CLASSIC_RECORDS aligned records (cut at
+    # a template) and those templates' unmapped records: equal to the
+    # batch engine's records of the whole, which begin with them
+    n_head = split_at_template(p["aligned.bam"], p["aligned_head.bam"], None,
+                               cut=ZIPPER_CLASSIC_RECORDS)
+    head_names = set(_names_in_order(p["aligned_head.bam"]))
+    from fgumi_tpu_torch.io.bam import BamReader, BamWriter
+
+    with BamReader(p["corrected.bam"]) as r, \
+            BamWriter(p["corrected_head.bam"], r.header) as w:
+        for rec in r:
+            if rec.name in head_names:
+                w.write_record(rec)
+    step("zipper_classic", _cli_wall(
+        ["zipper", "-i", p["aligned_head.bam"], "-u", p["corrected_head.bam"],
+         "-o", p["zipped_classic.bam"], "--classic"]), n_head)
+    check(records(p["zipped_classic.bam"]) == zipped[:n_head],
           "mapped_chain_400k: zipper fast and --classic records differ")
     split_at_template(p["zipped.bam"], p["half_a.bam"], p["half_b.bam"])
     tc = ["--order", "template-coordinate"]
@@ -3821,6 +3903,350 @@ def mapped_phase(paths, work, fused) -> dict:
            "device_filter_env": device_filter_env_case(paths["fixed5_1M"],
                                                        work, fused)}
     print(f"mapped phase {time.monotonic() - t0:.1f}s", flush=True)
+    return out
+
+
+# ------------------------------------------------------------------ qc
+
+# the qc phase's clip runs: (label, options, records of the input: None
+# for the whole query-grouped BAM, else its first N cut at a template)
+QC_CLIP_RUNS = (
+    ("clip_soft", ["-c", "soft", "--clip-overlapping-reads",
+                   "--clip-bases-past-mate"], None),
+    ("clip_hard", ["-c", "hard", "-H", "-a", "--read-one-five-prime", "3",
+                   "--read-two-three-prime", "2"], 50_000))
+QC_REF_SEED = 54  # the stand-in aligner's contigs as a seeded FASTA
+QC_VCF_SITES, QC_VCF_SEED = 1000, 55
+
+
+class _LogLines(logging.Handler):
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def _cli_logged(argv) -> tuple:
+    """:func:`_cli_wall` with the port's log lines of the run: (wall,
+    [message])."""
+    handler = _LogLines()
+    logger = logging.getLogger("fgumi_tpu_torch")
+    logger.addHandler(handler)
+    try:
+        wall = _cli_wall(argv)
+    finally:
+        logger.removeHandler(handler)
+    return wall, handler.lines
+
+
+def _logged_ints(lines, pattern: str) -> tuple:
+    """The integers of the first log line matching ``pattern`` (a regular
+    expression with groups); fails when no line matches."""
+    for line in lines:
+        m = re.search(pattern, line)
+        if m:
+            return tuple(int(g) for g in m.groups())
+    fail(f"no log line matches {pattern!r}")
+
+
+def _names_in_order(path) -> list:
+    from fgumi_tpu_torch.io.bam import BamReader
+
+    with BamReader(path) as r:
+        return [rec.name for rec in r]
+
+
+def _tsv(path) -> list:
+    with open(path) as f:
+        rows = [line.rstrip("\n").split("\t") for line in f]
+    return [dict(zip(rows[0], row)) for row in rows[1:]]
+
+
+def qc_clip_case(label, flags, n_records, zipped, ref, work) -> dict:
+    """``clip`` (``flags``, ``-m``) on the chain's query-grouped
+    ``zipped`` BAM, or its first ``n_records`` cut at a template: the
+    records out are the records in, name for name and in order; the
+    templates the command counted are the input's; a soft overlap run
+    clipped some templates."""
+    inp = zipped
+    if n_records is not None:
+        inp = os.path.join(work, f"qc.{label}.in.bam")
+        split_at_template(zipped, inp, None, cut=n_records)
+    out = os.path.join(work, f"qc.{label}.bam")
+    metrics = out + ".tsv"
+    wall, lines = _cli_logged(["clip", "-i", inp, "-o", out, "-r", ref,
+                               "-m", metrics, *flags])
+    names = _names_in_order(inp)
+    check(_names_in_order(out) == names,
+          f"{label}: the records out are not the records in, in order")
+    templates = sum(1 for k, n in enumerate(names)
+                    if k == 0 or n != names[k - 1])
+    got, overlap, extend = _logged_ints(
+        lines, r"clip: (\d+) templates \((\d+) overlap-clipped, (\d+) "
+               r"extend-clipped\)")
+    check(got == templates, f"{label}: clip counted {got} templates, the "
+                            f"input holds {templates}")
+    rows = {r["read_type"]: r for r in _tsv(metrics)}
+    check(set(rows) == {"fragment", "read_one", "read_two"},
+          f"{label}: metrics rows {sorted(rows)}")
+    if "--clip-overlapping-reads" in flags:
+        check(overlap > 0, f"{label}: no template was overlap-clipped")
+    summary = {"case": label, "records": len(names), "templates": templates,
+               "overlap_clipped": overlap, "extend_clipped": extend,
+               "bases_clipped_overlapping": sum(
+                   int(r["bases_clipped_overlapping"]) for r in rows.values()),
+               "reads_unmapped": sum(int(r["reads_unmapped"])
+                                     for r in rows.values()),
+               "wall_s": wall, "records_per_s": len(names) / wall}
+    print("qc " + json.dumps(summary), flush=True)
+    return summary
+
+
+def qc_simplex_metrics_case(grouped, n_records, work) -> dict:
+    """``simplex-metrics --min-reads 3`` on the chain's grouped BAM (of
+    ``n_records`` records): 20 yield rows, the full fraction's read pairs
+    all of the templates the command counted."""
+    prefix = os.path.join(work, "qc.simplex_metrics")
+    wall, lines = _cli_logged(["simplex-metrics", "-i", grouped, "-o",
+                               prefix, "--min-reads", "3"])
+    (templates,) = _logged_ints(lines, r"simplex-metrics: (\d+) templates")
+    yields = _tsv(prefix + ".simplex_yield_metrics.txt")
+    check(len(yields) == 20, f"simplex-metrics: {len(yields)} yield rows")
+    full = yields[-1]
+    check(int(full["read_pairs"]) == templates > 0,
+          f"simplex-metrics: {full['read_pairs']} read pairs at fraction 1, "
+          f"{templates} templates")
+    sizes = _tsv(prefix + ".family_sizes.txt")
+    summary = {"case": "simplex_metrics", "records": n_records,
+               "templates": templates, "cs_families": int(
+                   full["cs_families"]),
+               "ss_families": int(full["ss_families"]),
+               "ss_consensus_families": int(full["ss_consensus_families"]),
+               "family_sizes": len(sizes), "wall_s": wall,
+               "records_per_s": n_records / wall}
+    print("qc " + json.dumps(summary), flush=True)
+    return summary
+
+
+def qc_duplex_metrics_case(paired, work) -> dict:
+    """``duplex-metrics --duplex-umi-counts`` on the fast ``group
+    --strategy paired`` output of ``amplicon_paired``, plain and with a
+    BED of half of its positions: duplexes found, the BED run's templates
+    fewer but not none."""
+    n_records = len(records(paired))
+    bed = os.path.join(work, "qc.half_positions.bed")
+    with open(bed, "w") as f:
+        for p in range(0, AMPLICONS["amplicon_paired"]["positions"], 2):
+            start = 100000 + 1000 * p
+            f.write(f"chr1\t{start}\t{start + 200}\n")
+    runs = {}
+    for label, extra in (("all", []), ("bed", ["--intervals", bed])):
+        prefix = os.path.join(work, f"qc.duplex_metrics.{label}")
+        wall, lines = _cli_logged(["duplex-metrics", "-i", paired, "-o",
+                                   prefix, "--duplex-umi-counts", *extra])
+        (templates,) = _logged_ints(lines,
+                                    r"duplex-metrics: (\d+) templates")
+        yields = _tsv(prefix + ".duplex_yield_metrics.txt")
+        check(len(yields) == 20, f"duplex-metrics {label}: {len(yields)} "
+                                 "yield rows")
+        full = yields[-1]
+        check(int(full["read_pairs"]) == templates > 0,
+              f"duplex-metrics {label}: {full['read_pairs']} read pairs at "
+              f"fraction 1, {templates} templates")
+        check(int(full["ds_duplexes"]) > 0,
+              f"duplex-metrics {label}: no duplex family")
+        umis = _tsv(prefix + ".duplex_umi_counts.txt")
+        check(len(umis) > 0, f"duplex-metrics {label}: no duplex UMI rows")
+        runs[label] = {"templates": templates,
+                       "ds_families": int(full["ds_families"]),
+                       "ds_duplexes": int(full["ds_duplexes"]),
+                       "ds_fraction_duplexes": float(
+                           full["ds_fraction_duplexes"]),
+                       "duplex_umis": len(umis), "wall_s": wall,
+                       "records_per_s": n_records / wall}
+    check(0 < runs["bed"]["templates"] < runs["all"]["templates"],
+          f"duplex-metrics: the BED run counted {runs['bed']['templates']} "
+          f"of {runs['all']['templates']} templates")
+    summary = {"case": "duplex_metrics", "records": n_records, **runs}
+    print("qc " + json.dumps(summary), flush=True)
+    return summary
+
+
+def _mi_blocks(recs) -> list:
+    """[(MI value, records)] of the runs of consecutive records of one MI
+    value (downsample's families)."""
+    from fgumi_tpu_torch.io.bam import RawRecord
+
+    blocks = []
+    for data in recs:
+        mi = RawRecord(data).get_str(b"MI")
+        if not blocks or mi != blocks[-1][0]:
+            blocks.append((mi, []))
+        blocks[-1][1].append(data)
+    return blocks
+
+
+def qc_downsample_case(grouped, inp, work) -> dict:
+    """``downsample`` on the chain's grouped BAM. ``group -s adjacency``
+    merges families whose templates are not neighbours there, so an MI
+    value comes in more than one run of records, and the default MI-order
+    check refuses the input (exit 2, nothing written), as the reference's
+    does. ``--validate-mi-order false`` then draws once a run: ``-f 0.5
+    --seed 7`` with the rejects and both histograms (kept and rejected
+    records together the input's records ``inp``, run by run; the
+    histograms sum to its runs), and ``-f 1.0`` (the input's records)."""
+    from fgumi_tpu_torch import cli
+
+    blocks = _mi_blocks(inp)
+    split = len(blocks) > len({mi for mi, _ in blocks})
+    p = {k: os.path.join(work, f"qc.downsample.{k}")
+         for k in ("refused.bam", "half.bam", "rejects.bam", "kept.tsv",
+                   "rejected.tsv", "all.bam")}
+    rc = cli.main(["downsample", "-i", grouped, "-o", p["refused.bam"], "-f",
+                   "0.5", "--seed", "7"])
+    check(rc == (2 if split else 0) and os.path.exists(p["refused.bam"])
+          == (not split), f"downsample with the MI-order check: exit {rc} "
+                          f"on {len(blocks)} MI runs")
+    nocheck = ["--validate-mi-order", "false"]
+    wall = _cli_wall(["downsample", "-i", grouped, "-o", p["half.bam"], "-f",
+                      "0.5", "--seed", "7", "--rejects", p["rejects.bam"],
+                      "--histogram-kept", p["kept.tsv"],
+                      "--histogram-rejected", p["rejected.tsv"], *nocheck])
+    kept, rejected = records(p["half.bam"]), records(p["rejects.bam"])
+    ki = ri = kept_runs = 0
+    for _, block in blocks:
+        n = len(block)
+        if kept[ki:ki + n] == block:
+            ki += n
+            kept_runs += 1
+        elif rejected[ri:ri + n] == block:
+            ri += n
+        else:
+            fail("downsample: kept and rejected records are not the "
+                 "input's MI runs")
+    check(ki == len(kept) and ri == len(rejected),
+          "downsample: records beyond the input's")
+    hist = sum(int(r["count"]) for path in (p["kept.tsv"], p["rejected.tsv"])
+               for r in _tsv(path))
+    check(hist == len(blocks), f"downsample: the histograms hold {hist} "
+                               f"families, the input {len(blocks)} MI runs")
+    wall_all = _cli_wall(["downsample", "-i", grouped, "-o", p["all.bam"],
+                          "-f", "1.0", *nocheck])
+    check(records(p["all.bam"]) == inp,
+          "downsample -f 1.0: the records are not the input's")
+    summary = {"case": "downsample", "records": len(inp),
+               "mi_runs": len(blocks), "mi_split": split,
+               "kept_runs": kept_runs, "kept_records": len(kept),
+               "wall_s": wall, "records_per_s": len(inp) / wall,
+               "all_wall_s": wall_all}
+    print("qc " + json.dumps(summary), flush=True)
+    return summary
+
+
+def qc_vcf(path, cons, seed: int):
+    """A VCF of ``QC_VCF_SITES`` SNV sites drawn with ``seed`` from the
+    aligned bases of the coordinate-sorted ``cons``: the covering read's
+    base as the reference base at two sites of three, another base at the
+    rest; one sample column. Returns the sites."""
+    from fgumi_tpu_torch.io.bam import BamReader
+
+    rng = np.random.default_rng(seed)
+    with BamReader(cons) as r:
+        names = r.header.ref_names
+        recs = [rec for rec in r
+                if not rec.flag & 0x4 and rec.reference_length() > 0]
+    sites = {}
+    while len(sites) < QC_VCF_SITES:
+        rec = recs[int(rng.integers(0, len(recs)))]
+        cigar = rec.cigar()
+        lead = cigar[0][1] if cigar[0][0] == "S" else 0
+        off = int(rng.integers(0, rec.reference_length()))
+        base = chr(rec.seq_bytes()[lead + off])
+        if base not in "ACGT":
+            continue
+        key = (rec.ref_id, rec.pos + off + 1)
+        if key not in sites:
+            sites[key] = base if rng.random() < 2 / 3 \
+                else "ACGT"[("ACGT".index(base) + 1) % 4]
+    with open(path, "w") as f:
+        f.write("##fileformat=VCFv4.2\n#CHROM\tPOS\tID\tREF\tALT\tQUAL\t"
+                "FILTER\tINFO\tFORMAT\tsample\n")
+        for (tid, pos), ref in sorted(sites.items()):
+            alt = "ACGT"[("ACGT".index(ref) + 2) % 4]
+            f.write(f"{names[tid]}\t{pos}\t.\t{ref}\t{alt}\t60\tPASS\t.\t"
+                    f"GT:AD\t0/1:40,2\n")
+    return len(sites)
+
+
+def qc_review_case(grouped, n_records, work) -> dict:
+    """``review``: ``-c`` the chain's grouped BAM sorted by coordinate with
+    its BAI (raw reads with MI standing in for a realigned consensus),
+    ``-g`` the grouped BAM, a seeded VCF of ``QC_VCF_SITES`` sites; run
+    with the BAI beside the BAM (the indexed pass) and without it (the
+    streaming pass): the three outputs identical."""
+    cons = os.path.join(work, "qc.review.cons.bam")
+    sort_wall = _cli_wall(["sort", "-i", grouped, "-o", cons, "--order",
+                           "coordinate", "--write-index"])
+    vcf = os.path.join(work, "qc.review.vcf")
+    n_sites = qc_vcf(vcf, cons, QC_VCF_SEED)
+    bare = os.path.join(work, "qc.review.cons_noindex.bam")
+    os.link(cons, bare)
+    runs = {}
+    for label, bam in (("indexed", cons), ("streaming", bare)):
+        prefix = os.path.join(work, f"qc.review.{label}")
+        wall, lines = _cli_logged(["review", "-i", vcf, "-c", bam, "-g",
+                                   grouped, "-o", prefix])
+        used = any("consensus pass used the BAI index" in line
+                   for line in lines)
+        check(used == (label == "indexed"),
+              f"review {label}: the BAI index was "
+              f"{'not ' if not used else ''}used")
+        cons_out, raw_out, rows = _logged_ints(
+            lines, r"review: (\d+) consensus reads, (\d+) raw reads "
+                   r"extracted; (\d+) detail rows")
+        with open(prefix + ".txt", "rb") as f:
+            txt = f.read()
+        runs[label] = {"consensus_reads": cons_out, "raw_reads": raw_out,
+                       "rows": rows, "wall_s": wall, "outputs": (
+                           records(prefix + ".consensus.bam"),
+                           records(prefix + ".grouped.bam"), txt)}
+    a, b = runs["indexed"].pop("outputs"), runs["streaming"].pop("outputs")
+    check(a == b, "review: the indexed and streaming passes' outputs differ")
+    check(runs["indexed"]["rows"] > 0, "review: no detail row")
+    summary = {"case": "review", "sites": n_sites,
+               "records": n_records, "sort_wall_s": sort_wall,
+               **runs, "identical": True}
+    print("qc " + json.dumps(summary), flush=True)
+    return summary
+
+
+def qc_phase(zipped, grouped, paired, work) -> dict:
+    """The qc phase, one command at a time: ``clip`` (twice), then
+    ``simplex-metrics``, ``duplex-metrics`` (twice), ``downsample`` (twice)
+    and ``review`` (indexed and streaming). ``zipped`` and ``grouped`` are
+    the mapped chain's query-grouped and grouped BAMs, ``paired`` the fast
+    ``group --strategy paired`` output of ``amplicon_paired``. Host
+    commands: nothing here launches a kernel."""
+    from fgumi_tpu_torch.core.reference import write_fasta
+
+    t0 = time.monotonic()
+    ref = os.path.join(work, "qc.ref.fa")
+    write_fasta(ref, meth_reference_seqs(MAPPED_CONTIGS, MAPPED_CONTIG_LEN,
+                                         QC_REF_SEED))
+    reset_counts()
+    out = {label: qc_clip_case(label, flags, n, zipped, ref, work)
+           for label, flags, n in QC_CLIP_RUNS}
+    grouped_recs = records(grouped)
+    out["simplex_metrics"] = qc_simplex_metrics_case(
+        grouped, len(grouped_recs), work)
+    out["duplex_metrics"] = qc_duplex_metrics_case(paired, work)
+    out["downsample"] = qc_downsample_case(grouped, grouped_recs, work)
+    out["review"] = qc_review_case(grouped, len(grouped_recs), work)
+    counts = read_counts()
+    check(not any(counts.values()), f"qc: host commands launched {counts}")
+    print(f"qc phase {time.monotonic() - t0:.1f}s", flush=True)
     return out
 
 
@@ -4125,12 +4551,15 @@ def main():
         from fgumi_tpu_torch.ops import cuda_kernel
     except ImportError as e:
         fail(f"the fgumi_tpu_torch package is missing: {e}", 2)
-    if sys.argv[1:] not in ([], ["--phase", "mapped"]):
-        fail(f"unknown arguments {sys.argv[1:]} (none, or --phase mapped)",
-             2)
+    if sys.argv[1:] not in ([], ["--phase", "mapped"], ["--phase", "qc"]):
+        fail(f"unknown arguments {sys.argv[1:]} (none, or --phase mapped "
+             "or qc)", 2)
     # --phase mapped: the mapped phase alone, with fixed5_1M (whose
-    # --device-filter run device_filter_env compares with)
+    # --device-filter run device_filter_env compares with); --phase qc: the
+    # mapped chain and amplicon_paired's fast paired group, then the qc
+    # phase
     every_phase = not sys.argv[1:]
+    phase = sys.argv[2] if not every_phase else None
     t_start = time.monotonic()
     smi = nvidia_smi_line()
     print(smi, flush=True)
@@ -4140,8 +4569,11 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    inputs = {"fixed5_1M": (_simulate, INPUTS["fixed5_1M"]),
-              **_mapped_inputs("")[0]}
+    inputs = dict(_mapped_inputs("")[0])
+    if phase == "qc":
+        inputs["amplicon_paired"] = (_amplicon, AMPLICONS["amplicon_paired"])
+    else:
+        inputs["fixed5_1M"] = (_simulate, INPUTS["fixed5_1M"])
     if every_phase:
         inputs.update({
             **{k: (_simulate, kw) for k, kw in INPUTS.items()},
@@ -4170,9 +4602,13 @@ def main():
             combine_phase_test_shapes(dev)
             kernel_phase_test_shapes(dev)
             packed2_phase_test_shapes(dev)
+        print(f"test shapes done at {time.monotonic() - t_start:.1f}s",
+              flush=True)
         for k, fut in sims.items():
             n, dt = fut.result()
             print(f"built input {k}: {n} records in {dt:.1f}s", flush=True)
+        print(f"inputs ready at {time.monotonic() - t_start:.1f}s",
+              flush=True)
         if every_phase:
             e2e = e2e_phase(paths, work)
             groups = group_phase(paths, work)
@@ -4193,15 +4629,31 @@ def main():
             resilience_phase(paths, work, e2e, duplexes)
             dedup_compare_finish(compares)
             fused = e2e["fixed5_1M"]["fused"]
-        else:
+            paired = groups["amplicon_paired_paired_fast"]
+        elif phase == "mapped":
             fused = e2e_case("fixed5_1M_fused", paths["fixed5_1M"], work,
                              ["--min-reads", "1", "--device-filter",
                               *FILTER_OPTS], True)
-        mapped = mapped_phase(paths, work, fused)
+        if phase == "qc":
+            mapped = {"mapped_chain_400k": mapped_chain_case(paths, work)}
+            paired = group_case("amplicon_paired", "paired",
+                                paths["amplicon_paired"], work, "fast")
+        else:
+            mapped = mapped_phase(paths, work, fused)
+        if phase != "mapped":
+            qc_phase(os.path.join(work, "mapped.zipped.bam"),
+                     os.path.join(work, "mapped.grouped.bam"), paired["out"],
+                     work)
 
     if every_phase:
         entries = earlier_kernel_entries(dev, e2e, groups, pipes, duplexes,
                                          codecs, staged, dedup)
+    elif phase == "qc":
+        k4 = kernel_phase_main_path(
+            dev, {}, {"k4_paired": paired["largest_launch"]}, {})
+        entries = [kernel_entry(
+            "umi_hamming", k4["k4_paired"], paired["launches"]["umi_hamming"],
+            REPLACES_HAMMING, "amplicon_paired_paired_fast", HAMMING_SOURCE)]
     else:
         k1f = kernel_phase_main_path(
             dev, {"fixed5_1M": {"fused": fused["largest_batch"]}}, {}, {})

@@ -1,15 +1,18 @@
 """Command line of the PyTorch/CUDA port: ``pipeline``, ``extract``,
 ``correct``, ``fastq``, ``zipper``, ``sort``, ``merge``, ``group``,
-``dedup``, ``simplex``, ``duplex``, ``codec``, ``filter``, ``compare
-bams|metrics`` and ``simulate grouped-reads|duplex-reads|codec-reads|
-mapped-reads|fastq-reads|consensus-reads|correct-reads``.
+``dedup``, ``simplex``, ``duplex``, ``codec``, ``filter``, ``clip``,
+``downsample``, ``review``, ``duplex-metrics``, ``simplex-metrics``,
+``compare bams|metrics`` and ``simulate grouped-reads|duplex-reads|
+codec-reads|mapped-reads|fastq-reads|consensus-reads|correct-reads``.
 
-``correct``, ``fastq``, ``zipper`` and ``merge`` are host commands (no
-``--device``; nothing touches CUDA) with the reference's options:
-``correct`` and ``zipper`` run a batch engine unless ``--classic`` asks
-for the per-template one (``zipper`` also takes it for
+``correct``, ``fastq``, ``zipper``, ``merge``, ``clip``, ``downsample``,
+``review``, ``duplex-metrics`` and ``simplex-metrics`` are host commands
+(no ``--device``, as in the reference; nothing touches CUDA) with the
+reference's options: ``correct`` and ``zipper`` run a batch engine unless
+``--classic`` asks for the per-template one (``zipper`` also takes it for
 ``--restore-unconverted-bases`` and for a ``--tags-to-remove`` of a tag it
-appends), ``merge`` merges each input's batch-extracted sort keys.
+appends), ``merge`` merges each input's batch-extracted sort keys; the
+other five run a record or a template at a time, as the reference does.
 
 ``simplex``, ``duplex``, ``codec``, ``group`` and ``dedup`` take
 ``--device {cuda,cpu}`` (default
@@ -94,10 +97,14 @@ PROGRAM_ID = "fgumi-tpu-torch"
 
 
 def _parse_bool(s: str) -> bool:
-    """fgbio-style boolean flag values (commands/common.rs parse_bool)."""
-    if s.lower() in ("true", "t", "yes", "y", "1"):
+    """fgbio-style boolean flag values, as the reference's CLI parses them
+    (its later ``_parse_bool``, fgumi_tpu/cli.py, is the one its parsers
+    call: ``y`` and ``n`` are refused)."""
+    if isinstance(s, bool):
+        return s
+    if s.lower() in ("true", "t", "yes", "1"):
         return True
-    if s.lower() in ("false", "f", "no", "n", "0"):
+    if s.lower() in ("false", "f", "no", "0"):
         return False
     raise argparse.ArgumentTypeError(f"expected true/false, got {s!r}")
 
@@ -2515,6 +2522,228 @@ def cmd_merge(args, argv):
     return 0
 
 
+def _add_clip(sub):
+    p = sub.add_parser("clip", help="Clip overlapping reads in BAM files")
+    p.add_argument("-i", "--input", required=True,
+                   help="queryname sorted/grouped BAM")
+    p.add_argument("-o", "--output", required=True)
+    p.add_argument("-r", "--reference", required=True,
+                   help="reference FASTA (for NM/UQ/MD regeneration)")
+    p.add_argument("-c", "--clipping-mode", default="hard",
+                   choices=["soft", "soft-with-mask", "hard"])
+    p.add_argument("--clip-overlapping-reads", action="store_true")
+    p.add_argument("--clip-bases-past-mate", "--clip-extending-past-mate",
+                   dest="clip_extending_past_mate", action="store_true")
+    p.add_argument("--read-one-five-prime", type=int, default=0)
+    p.add_argument("--read-one-three-prime", type=int, default=0)
+    p.add_argument("--read-two-five-prime", type=int, default=0)
+    p.add_argument("--read-two-three-prime", type=int, default=0)
+    p.add_argument("-H", "--upgrade-clipping", action="store_true",
+                   help="upgrade existing clipping to the configured mode")
+    p.add_argument("-a", "--auto-clip-attributes", action="store_true",
+                   help="hard-clip per-base tags matching read length")
+    p.add_argument("-m", "--metrics", default=None)
+    _add_compression_level(p)
+    _add_pipeline_compat(p)
+    p.set_defaults(func=cmd_clip)
+
+
+def cmd_clip(args, argv):
+    """The reference's ``clip`` (fgumi_tpu/cli.py cmd_clip): a template at
+    a time through ``core/clipper.RecordClipper``, mate info repaired and
+    NM/UQ/MD regenerated against the FASTA."""
+    from .commands.clip import ClipParams, run_clip, write_clip_metrics
+    from .core.reference import ReferenceReader
+    from .core.template import is_query_grouped
+    from .io.bam import BamReader, BamWriter
+
+    params = ClipParams(
+        clipping_mode=args.clipping_mode,
+        clip_overlapping_reads=args.clip_overlapping_reads,
+        clip_extending_past_mate=args.clip_extending_past_mate,
+        read_one_five_prime=args.read_one_five_prime,
+        read_one_three_prime=args.read_one_three_prime,
+        read_two_five_prime=args.read_two_five_prime,
+        read_two_three_prime=args.read_two_three_prime,
+        upgrade_clipping=args.upgrade_clipping,
+        auto_clip_attributes=args.auto_clip_attributes)
+    if not params.any_clipping():
+        log.error("At least one clipping option is required")
+        return 2
+    if _bad_level(args):
+        return 2
+    t0 = time.monotonic()
+    try:
+        reference = ReferenceReader(args.reference)
+        with BamReader(args.input) as reader:
+            if not is_query_grouped(reader.header.text):
+                log.error("clip requires queryname sorted or query grouped "
+                          "input (@HD must advertise SO:queryname or "
+                          "GO:query); sort with `fgumi-tpu sort --order "
+                          "queryname` first")
+                return 2
+            out_header = _header_with_pg(reader.header, " ".join(argv))
+            with BamWriter(args.output, out_header,
+                           level=args.compression_level) as writer:
+                metrics = run_clip(reader, writer, reference, params)
+    except (ValueError, OSError, KeyError) as e:
+        log.error("%s", e)
+        return 2
+    log.info("clip: %d templates (%d overlap-clipped, %d extend-clipped) "
+             "in %.2fs", metrics.templates, metrics.overlap_clipped,
+             metrics.extend_clipped, time.monotonic() - t0)
+    if args.metrics:
+        write_clip_metrics(metrics, args.metrics)
+    return 0
+
+
+def _add_downsample(sub):
+    p = sub.add_parser("downsample", help="Downsample BAM by UMI family")
+    p.add_argument("-i", "--input", required=True,
+                   help="grouped BAM with MI tags (template-coordinate order)")
+    p.add_argument("-o", "--output", required=True)
+    p.add_argument("-f", "--fraction", type=float, required=True,
+                   help="fraction of UMI families to keep, in (0.0, 1.0]")
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--rejects", default=None)
+    p.add_argument("--validate-mi-order", nargs="?", const=True,
+                   default=True, type=_parse_bool)
+    p.add_argument("--histogram-kept", default=None)
+    p.add_argument("--histogram-rejected", default=None)
+    _add_compression_level(p)
+    _add_pipeline_compat(p)
+    p.set_defaults(func=cmd_downsample)
+
+
+def cmd_downsample(args, argv):
+    """The reference's ``downsample`` (fgumi_tpu/cli.py cmd_downsample):
+    one draw of Python's ``random.Random(--seed)`` a family, so a seed
+    keeps the reference's families."""
+    from .commands.downsample import run_downsample
+    from .io.bam import BamReader, BamWriter
+    from .metrics import write_family_size_histogram
+
+    if _bad_level(args):
+        return 2
+    t0 = time.monotonic()
+    try:
+        with BamReader(args.input) as reader:
+            out_header = _header_with_pg(reader.header, " ".join(argv))
+            rejects = (BamWriter(args.rejects, out_header,
+                                 level=args.compression_level)
+                       if args.rejects else None)
+            ok = False
+            try:
+                with BamWriter(args.output, out_header,
+                               level=args.compression_level) as writer:
+                    stats = run_downsample(
+                        reader, writer, args.fraction, seed=args.seed,
+                        rejects_writer=rejects,
+                        validate_mi_order=args.validate_mi_order)
+                ok = True
+            finally:
+                if rejects is not None:
+                    (rejects.close if ok else rejects.discard)()
+    except (ValueError, OSError) as e:
+        log.error("%s", e)
+        return 2
+    # family_size -> count, ascending (downsample.rs:286-297)
+    for sizes, path in ((stats.kept_sizes, args.histogram_kept),
+                        (stats.rejected_sizes, args.histogram_rejected)):
+        if path:
+            write_family_size_histogram(dict(sorted(sizes.items())), path)
+    log.info("downsample: kept %d/%d families (%d/%d records) in %.2fs",
+             stats.families_kept, stats.families_total, stats.records_kept,
+             stats.records_total, time.monotonic() - t0)
+    return 0
+
+
+def _add_review(sub):
+    p = sub.add_parser("review",
+                       help="Extract data to review variant calls from "
+                            "consensus reads")
+    p.add_argument("-i", "--input", required=True,
+                   help="VCF or interval list of variant positions")
+    p.add_argument("-c", "--consensus-bam", required=True,
+                   help="coordinate-sorted consensus BAM")
+    p.add_argument("-g", "--grouped-bam", required=True,
+                   help="coordinate-sorted grouped raw-read BAM")
+    p.add_argument("-r", "--ref", default=None,
+                   help="reference FASTA (required for interval-list input)")
+    p.add_argument("-o", "--output", required=True,
+                   help="output prefix (.consensus.bam/.grouped.bam/.txt)")
+    p.add_argument("-s", "--sample", default=None,
+                   help="sample name for VCF genotype extraction")
+    p.add_argument("-N", "--ignore-ns", type=_parse_bool, nargs="?",
+                   const=True, default=False, metavar="true|false",
+                   help="ignore N bases in consensus reads")
+    p.add_argument("-m", "--maf", type=float, default=0.05,
+                   help="only review variants at or below this MAF")
+    p.set_defaults(func=cmd_review)
+
+
+def cmd_review(args, argv):
+    """The reference's ``review``: an indexed consensus pass when a BAI or
+    CSI no older than the BAM sits beside it, else a streaming one."""
+    from .commands.review import run_review
+
+    return run_review(args)
+
+
+def _add_metrics_options(p, min_reads_help: dict):
+    p.add_argument("-i", "--input", required=True,
+                   help="grouped BAM (MI tags, template-coordinate order)")
+    p.add_argument("-o", "--output", required=True,
+                   help="output path prefix for metric files")
+    p.add_argument("--intervals", default=None,
+                   help="BED or Picard interval list restricting analysis")
+    for flag, help_text in min_reads_help.items():
+        p.add_argument(flag, type=int, default=1, help=help_text)
+
+
+def _add_duplex_metrics(sub):
+    p = sub.add_parser("duplex-metrics",
+                       help="Collect QC metrics for duplex sequencing "
+                            "(grouped BAM)")
+    _add_metrics_options(p, {
+        "--min-ab-reads": "min AB-strand reads for a family to count as "
+                          "duplex",
+        "--min-ba-reads": "min BA-strand reads for a family to count as "
+                          "duplex"})
+    p.add_argument("--duplex-umi-counts", action="store_true",
+                   help="also write duplex UMI pair counts (memory "
+                        "intensive)")
+    p.add_argument("--description", default=None,
+                   help="accepted and ignored, as in the reference: it "
+                        "titles only the reference's optional R plots")
+    p.set_defaults(func=cmd_duplex_metrics)
+
+
+def cmd_duplex_metrics(args, argv):
+    from .commands.duplex_metrics import run_duplex_metrics
+
+    return run_duplex_metrics(args)
+
+
+def _add_simplex_metrics(sub):
+    p = sub.add_parser("simplex-metrics",
+                       help="Collect QC metrics for simplex sequencing "
+                            "(grouped BAM)")
+    _add_metrics_options(p, {
+        "--min-reads": "min family size counted toward "
+                       "ss_consensus_families"})
+    p.add_argument("--description", default=None,
+                   help="accepted and ignored, as in the reference: it "
+                        "titles only the reference's optional R plots")
+    p.set_defaults(func=cmd_simplex_metrics)
+
+
+def cmd_simplex_metrics(args, argv):
+    from .commands.simplex_metrics import run_simplex_metrics
+
+    return run_simplex_metrics(args)
+
+
 # options of the reference `pipeline` that the port does not implement
 _PIPELINE_NOT_PORTED = (
     ("shard", "--shard", _given),
@@ -3608,6 +3837,11 @@ def build_parser():
     _add_zipper(sub)
     _add_fastq(sub)
     _add_merge(sub)
+    _add_clip(sub)
+    _add_downsample(sub)
+    _add_review(sub)
+    _add_duplex_metrics(sub)
+    _add_simplex_metrics(sub)
     _add_compare(sub)
     _add_simulate(sub)
     _add_trace_merge(sub)

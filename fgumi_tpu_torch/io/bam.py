@@ -16,7 +16,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from .bgzf import BgzfReader, BgzfWriter
+from .bgzf import BgzfReader, BgzfWriter, _bc_bsize
 from .errors import InputFormatError, OutputIntegrityError
 
 BAM_MAGIC = b"BAM\x01"
@@ -418,6 +418,126 @@ class BamReader:
 
     def close(self):
         self._r.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def _read_bgzf_block_at(f):
+    """One BGZF block at the current file position -> (payload, csize),
+    or None at EOF. Parses BSIZE from the BC extra subfield (BGZF spec)."""
+    header = f.read(12)
+    if len(header) < 12:
+        return None
+    if header[:4] != b"\x1f\x8b\x08\x04":
+        raise ValueError("not a BGZF block (missing BC extra flag)")
+    (xlen,) = struct.unpack_from("<H", header, 10)
+    bsize = _bc_bsize(f.read(xlen)) + 1
+    if bsize == 0:
+        raise ValueError("BGZF block lacks BSIZE")
+    cdata_len = bsize - 12 - xlen - 8
+    cdata = f.read(cdata_len)
+    footer = f.read(8)
+    if len(cdata) < cdata_len or len(footer) < 8:
+        raise EOFError("truncated BGZF block")
+    payload = zlib.decompress(cdata, wbits=-15)
+    (isize,) = struct.unpack_from("<I", footer, 4)
+    if len(payload) != isize:
+        raise ValueError("BGZF ISIZE mismatch")
+    return payload, bsize
+
+
+class BamIndexedReader:
+    """Random-access BAM reader over a coordinate-sorted BAM + .bai index.
+
+    Analog of the reference's indexed reader
+    (crates/fgumi-raw-bam/src/indexed_reader.rs): BAI bins +
+    linear index select candidate chunks, BGZF blocks are decompressed from
+    each chunk's virtual offset, and records are filtered by actual overlap.
+    """
+
+    def __init__(self, path: str, index_path: str = None):
+        """`index_path`: explicit .bai/.csi path; by default .bai is tried
+        first, then .csi (both expose the same query_chunks interface)."""
+        with BamReader(path) as r:
+            self.header = r.header
+        from .bai import BaiIndex, CsiIndex
+
+        if index_path is None:
+            index_path = path + ".bai" if os.path.exists(path + ".bai") \
+                else path + ".csi"
+        self.index = CsiIndex(index_path) if index_path.endswith(".csi") \
+            else BaiIndex(index_path)
+        self._f = open(path, "rb")
+
+    def query(self, tid: int, beg: int, end: int):
+        """Yield RawRecords overlapping [beg, end) on reference `tid`."""
+        for vo_beg, vo_end in self.index.query_chunks(tid, beg, end):
+            yield from self._scan_chunk(vo_beg, vo_end, tid, beg, end)
+
+    def _scan_chunk(self, vo_beg, vo_end, tid, beg, end):
+        f = self._f
+        coffset = vo_beg >> 16
+        f.seek(coffset)
+        got = _read_bgzf_block_at(f)
+        if got is None:
+            return
+        payload, csize = got
+        buf = bytearray(payload[vo_beg & 0xFFFF:])
+        # markers: (buf_pos, block_file_offset, offset_of_buf_pos_in_block)
+        markers = [(0, coffset, vo_beg & 0xFFFF)]
+        next_coffset = coffset + csize
+        pos = 0
+        while True:
+            if pos > (1 << 20):
+                # stream with bounded memory: drop the consumed prefix and
+                # rebase the block markers (whole-chromosome queries would
+                # otherwise hold the full decompressed chunk)
+                keep = max(i for i, m in enumerate(markers) if m[0] <= pos)
+                rebased = []
+                for bpos, blk_off, in_blk in markers[keep:]:
+                    if bpos < pos:  # the block containing `pos`
+                        rebased.append((0, blk_off, in_blk + pos - bpos))
+                    else:
+                        rebased.append((bpos - pos, blk_off, in_blk))
+                markers = rebased
+                del buf[:pos]
+                pos = 0
+            while len(buf) < pos + 4:
+                got = _read_bgzf_block_at(f)
+                if got is None:
+                    return
+                markers.append((len(buf), next_coffset, 0))
+                buf += got[0]
+                next_coffset += got[1]
+            # virtual offset of this record's first byte
+            m = next(m for m in reversed(markers) if m[0] <= pos)
+            rec_vo = (m[1] << 16) | (m[2] + pos - m[0])
+            if rec_vo >= vo_end:
+                return
+            (block_size,) = struct.unpack_from("<I", buf, pos)
+            while len(buf) < pos + 4 + block_size:
+                got = _read_bgzf_block_at(f)
+                if got is None:
+                    raise EOFError("truncated BAM record in indexed read")
+                markers.append((len(buf), next_coffset, 0))
+                buf += got[0]
+                next_coffset += got[1]
+            rec = RawRecord(bytes(buf[pos + 4:pos + 4 + block_size]))
+            pos += 4 + block_size
+            if rec.ref_id != tid or rec.pos >= end:
+                if rec.ref_id > tid or (rec.ref_id == tid and rec.pos >= end):
+                    return  # coordinate order: nothing later can overlap
+                continue
+            rec_end = rec.pos + max(rec.reference_length(), 1)
+            if rec_end > beg:
+                yield rec
+
+    def close(self):
+        self._f.close()
 
     def __enter__(self):
         return self
