@@ -11,17 +11,23 @@ compares with, then K1-f and K1 at those runs' batches and the last lines.
 ``python3 chip_smoke.py --phase qc`` runs the qc phase alone: first its own
 inputs, ``mapped_chain_400k`` and the fast ``group --strategy paired`` of
 ``amplicon_paired`` (``cuda`` and ``cpu``), then the phase, then K4 and K1
-at those runs' largest launch and batch and the last lines.)
+at those runs' largest launch and batch and the last lines.
+``python3 chip_smoke.py --phase serve`` runs the serve phase alone, on its
+two inputs, ``longtail_200k`` and ``pipeline_k4_50k``'s FASTQ pair, then
+K7's entry and the last lines.)
 
 Phases (any failed check exits nonzero; nothing is caught and passed over):
 
 1. setup: the card's name and power limit (nvidia-smi); whether the card
    host has libdeflate's header and library (a probe: nothing links it);
    the input BAMs
-   are simulated or built in worker processes while the main process
-   builds, in parallel, the CUDA kernels (one ``nvcc`` per source in
+   are simulated or built in worker processes (the host's cores but two,
+   in the order the phases need them) while the main process builds, in
+   parallel, the CUDA kernels (one ``nvcc`` per source in
    ``fgumi_tpu_torch/csrc``) and the native host library (``g++`` on
-   ``fgumi_tpu_torch/native``), all timed;
+   ``fgumi_tpu_torch/native``), all timed; each phase waits only for its
+   own inputs (the 1,000,000-read ``correct_1M`` simulation, needed last,
+   runs on beside the phases before ``mapped``);
 2. kernels at the test shapes: K4 ``umi_hamming`` against its plain version,
    exactly (one row on either side; L 1, 3, 8, 9, 71 and 4, 5, 15, 16, 17,
    32, 33 around the bit planes' 32 columns and the 4-byte words; M of every
@@ -59,7 +65,10 @@ Phases (any failed check exits nonzero; nothing is caught and passed over):
    40,000 reads;
 3. end to end through the port's CLI, each case's cuda run between a reset
    and a read of the launch counts, its records equal to the ``--device
-   cpu`` run's:
+   cpu`` run's; the phases run as their inputs are built: ``group``,
+   ``pipeline``, ``filter``, ``sort``, duplex, codec and methylation first,
+   then the simplex cases below (``fixed5_1M`` simulates longest) and the
+   rest in the order listed:
    - ``fixed5_1M``: BASELINE config 1 at full size, 1,000,000 reads
      (100,000 families x 5 templates, paired, 150 bp, seed 42), fast engine
      ``simplex`` and ``simplex --device-filter`` (the options of the JAX
@@ -248,11 +257,12 @@ Phases (any failed check exits nonzero; nothing is caught and passed over):
    post-consensus commands on inputs made above, one at a time, each timed
    on a ``qc`` line (host commands: every launch count stays 0 across it):
    ``clip -c soft --clip-overlapping-reads --clip-bases-past-mate -m`` on
-   the chain's query-grouped ``zipped.bam`` (276,099 records; the
-   reference a seeded FASTA of the stand-in aligner's four 1,000,000-base
-   contigs, written with the port's ``write_fasta``) and ``clip -c hard -H
-   -a --read-one-five-prime 3 --read-two-three-prime 2 -m`` on its first
-   50,000 records cut at a template (:func:`split_at_template`), each with
+   the first 100,000 records of the chain's query-grouped ``zipped.bam``
+   (of 276,099; the reference a seeded FASTA of the stand-in aligner's
+   four 1,000,000-base contigs, written with the port's ``write_fasta``)
+   and ``clip -c hard -H -a --read-one-five-prime 3
+   --read-two-three-prime 2 -m`` on its first 50,000 records, both cut at
+   a template (:func:`split_at_template`), each with
    the records out the records in, name for name and in order, the
    templates the command counted the input's, and the soft run's
    overlap-clipped templates above 0; ``simplex-metrics --min-reads 3`` on
@@ -267,7 +277,26 @@ Phases (any failed check exits nonzero; nothing is caught and passed over):
    (raw reads with MI standing in for a consensus), ``-g`` the grouped BAM
    and a VCF of 1,000 seeded SNV sites at covered positions with a sample
    column, run with the BAI beside the BAM (the indexed pass) and without
-   it (the streaming pass), the three outputs identical;
+   it (the streaming pass), the three outputs identical; and, before the
+   ``mapped`` phase, the ``serve`` phase: ``python -m fgumi_tpu_torch
+   serve`` in a child process (``--workers 2 --health-period 1
+   --metrics-port 0 --report-dir``; its warm-up — CUDA context, every
+   kernel library loaded — timed from its log line), ``simplex`` on
+   ``longtail_200k`` submitted twice (cold, then warm; records equal; both
+   walls), then a ``pipeline`` on ``pipeline_k4_50k`` (K4, K1) and a fused
+   ``simplex --device-filter`` on ``longtail_200k`` (K1-f) submitted at
+   once, each output byte-identical to the port's standalone run of the
+   same argv in this process and each job's own ``--stats-json`` (the
+   daemon's per-command launch tallies) naming its kernels; ``stats``
+   with at least 3 ``device.canary.ok`` after the last job and the
+   breaker closed, ``/healthz`` 200 and ``/metrics``; ``jobs --shutdown``
+   (the client's) and exit 0; a ``serve`` line with the walls; then K7
+   ``canary_sum`` against its plain version on the card, exactly (zeros,
+   all-255 and random bytes at 1 MiB, 1, 17 and 1 MiB + 13 bytes), timed at
+   1 MiB beside its bound, its plain version and ``torch.sum(x,
+   dtype=torch.int32)``; its launches in the ``kernels`` line are the
+   daemon's health monitor's (a fresh process, so every count starts at
+   0), read from ``stats``;
 4. kernels at the main-path shapes the runs reported (the fast runs' largest
    batch; the simplex stage's largest batch of each ``cuda`` pipeline run:
    K1 on fused and ``--no-fuse`` ``pipeline_400k`` and on
@@ -303,7 +332,8 @@ Phases (any failed check exits nonzero; nothing is caught and passed over):
    ``pipeline_k4_50k_fused`` and ``amplicon_dedup_adjacency_fast``, K1-r
    and K5 ``duplex_240k``, K1 and K6
    ``codec_320k``, K1-p2 ``many_quals_20k``, K1 ``mapped_chain_400k`` at
-   that run's largest simplex batch; an entry whose path has a staged run
+   that run's largest simplex batch, K7 ``serve_health_monitor``; an
+   entry whose path has a staged run
    also with ``staged_path`` and ``staged_launches``, that run and its
    count; each entry with its registers
    and launch geometry; K1-r's also with ``uniform_ms``, its time at the
@@ -3912,7 +3942,7 @@ def mapped_phase(paths, work, fused) -> dict:
 # for the whole query-grouped BAM, else its first N cut at a template)
 QC_CLIP_RUNS = (
     ("clip_soft", ["-c", "soft", "--clip-overlapping-reads",
-                   "--clip-bases-past-mate"], None),
+                   "--clip-bases-past-mate"], 100_000),
     ("clip_hard", ["-c", "hard", "-H", "-a", "--read-one-five-prime", "3",
                    "--read-two-three-prime", "2"], 50_000))
 QC_REF_SEED = 54  # the stand-in aligner's contigs as a seeded FASTA
@@ -4271,6 +4301,11 @@ def staged_phase(paths, work, serial_runs):
             for name, command, inp, ser, flags in STAGED_RUNS}
 
 
+#: simulation workers: the card host's cores but two, one for this process
+#: (the builds, then the kernel checks) and one to spare
+SIM_WORKERS = max(2, (os.cpu_count() or 8) - 2)
+
+
 def _simulate_codec(path, kw):
     """Worker-process body: one simulated codec input BAM."""
     from fgumi_tpu_torch.simulate import simulate_codec_bam
@@ -4361,6 +4396,274 @@ def _amplicon(path, kw):
     t0 = time.monotonic()
     n = amplicon_bam(path, **kw)
     return n, time.monotonic() - t0
+
+
+# ------------------------------------------------------------------ serve
+
+REPLACES_CANARY = "fgumi_tpu/ops/kernel.py:1211"
+CANARY_SOURCE = "fgumi_tpu_torch/csrc/canary.cu"
+# the serve phase's inputs: a consensus job run cold and then warm, and two
+# jobs at once, a pipeline through K4 and K1 and a fused simplex (K1-f)
+SERVE_INPUTS = ("longtail_200k", "pipeline_k4_50k")
+SERVE_START_S = 180  # bound on the daemon's start, its warm-up included
+SERVE_JOB_S = 600
+SERVE_CANARIES = 3
+
+
+class _DaemonLog:
+    """The serve child's stderr, read on a thread: every line kept, and the
+    warm-up seconds, the metrics port and the listening line picked out."""
+
+    def __init__(self, proc):
+        import threading
+
+        self.lines = []
+        self.warm_s = None
+        self.metrics_port = None
+        self.listening = threading.Event()
+        self._t = threading.Thread(target=self._read, args=(proc,),
+                                   daemon=True)
+        self._t.start()
+
+    def _read(self, proc):
+        for line in proc.stderr:
+            line = line.rstrip("\n")
+            self.lines.append(line)
+            m = re.search(r"serve: warm-up done in ([0-9.]+)s", line)
+            if m:
+                self.warm_s = float(m.group(1))
+            m = re.search(r"serve: metrics on http://127\.0\.0\.1:(\d+)/",
+                          line)
+            if m:
+                self.metrics_port = int(m.group(1))
+            if "serve: listening on" in line:
+                self.listening.set()
+
+    def join(self):
+        self._t.join(timeout=30)
+
+    def tail(self, n: int = 30) -> str:
+        return "\n".join(self.lines[-n:])
+
+
+def _serve_job(client, argv, timeout=SERVE_JOB_S) -> dict:
+    """Submit ``argv`` to the daemon, wait for its end, require ``done``;
+    the job's record with ``client_wall_s`` (submit to done, this side)."""
+    t0 = time.monotonic()
+    job = client.wait(client.submit(argv)["id"], timeout=timeout)
+    check(job["state"] == "done",
+          f"serve job {' '.join(argv)}: {job['state']}: {job['error']}")
+    job["client_wall_s"] = time.monotonic() - t0
+    job["run_s"] = job["finished_unix"] - job["started_unix"]
+    return job
+
+
+def _digest(path: str) -> str:
+    import hashlib
+
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def _standalone_digest(argv) -> str:
+    """The port's standalone run of ``argv`` in this process (the same
+    argv a serve job gets): its output's digest, the output removed."""
+    from fgumi_tpu_torch import cli
+
+    out = argv[argv.index("-o") + 1]
+    check(cli.main(argv) == 0, f"standalone {' '.join(argv)} failed")
+    digest = _digest(out)
+    os.unlink(out)
+    return digest
+
+
+def _get_url(url: str):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=10) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def check_canary_kernel(dev, n: int, timed: bool) -> dict:
+    """K7 (``ops/canary.canary_sum``) against its plain version on the card,
+    exactly, on zero, all-255 and seeded random payloads of ``n`` bytes;
+    with ``timed`` also its times beside the bound, the plain version's
+    and ``torch.sum(x, dtype=torch.int32)``'s (the library call). Launches
+    made here are not the main path's: the count is restored."""
+    import torch
+
+    from fgumi_tpu_torch.ops import canary
+
+    launches0 = canary.CANARY_LAUNCHES
+    rng = np.random.default_rng(n)
+    payloads = {"zeros": torch.zeros(n, dtype=torch.uint8, device=dev),
+                "all_255": torch.full((n,), 255, dtype=torch.uint8,
+                                      device=dev),
+                "random": torch.from_numpy(rng.integers(
+                    0, 256, n, dtype=np.uint8)).to(dev)}
+    err = 0
+    for name, x in payloads.items():
+        got = canary.canary_sum(x)
+        want = canary.canary_sum_plain(x)
+        torch.cuda.synchronize()
+        check(got.dtype == torch.int32 and got.shape == (),
+              f"K7 {name} {n}: output {got.dtype} {tuple(got.shape)}")
+        check(int(got) == int(want) == int(x.to(torch.int64).sum()),
+              f"K7 {name} {n}: kernel {int(got)} != plain {int(want)}")
+        err = max(err, abs(int(got) - int(want)))
+    check(canary.CANARY_LAUNCHES == launches0 + len(payloads),
+          "K7: a launch was not counted")
+    canary.CANARY_LAUNCHES = launches0
+    res = {"max_abs_err": err, "bytes": n + 4, "ops": n,
+           "geometry": canary.launch_geometry(n),
+           "registers": ptxas_registers("canary_sum_kernel")}
+    print(f"check K7 canary_sum {n}B: exact on zeros, all-255 and random "
+          f"bytes; geometry {res['geometry']}, {res['registers']} "
+          "registers", flush=True)
+    if timed:
+        x = payloads["random"]
+        _time(res, lambda: canary.canary_sum(x),
+              lambda: canary.canary_sum_plain(x), canary, "CANARY_LAUNCHES",
+              "canary_sum_kernel")
+        lib = lambda: torch.sum(x, dtype=torch.int32)  # noqa: E731
+        res["library_ms"] = device_ms(lib)[0] or loop_ms(lib)
+        print("time K7 canary_sum " + json.dumps(
+            {k: res[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                 "bound_by", "call_ms", "loop_ms")}),
+            flush=True)
+    return res
+
+
+def serve_phase(paths, work, dev):
+    """The job service on the card: ``serve`` in a child process (2
+    workers, the health canary every second, ``/metrics`` and ``/healthz``
+    on an ephemeral port, per-job reports), its warm-up timed; a consensus
+    job cold and then warm; a ``pipeline`` (K4, K1) and a fused ``simplex
+    --device-filter`` (K1-f) at once, each output byte-identical to the
+    port's standalone run of the same argv and each job's own
+    ``--stats-json`` launch counts (the daemon's per-command tallies)
+    showing its kernels; ``stats`` with at least 3 ``device.canary.ok``
+    and ``/healthz`` 200; a graceful shutdown (exit 0). Then K7 against
+    its plain version and timed. Returns K7's ``kernels`` entry: its
+    launches are the daemon's (a fresh process: every count 0 at its
+    start), read from ``stats``."""
+    from fgumi_tpu_torch.serve.client import ServeClient
+
+    t0 = time.monotonic()
+    sock = os.path.join(work, "serve.sock")
+    reports = os.path.join(work, "serve_reports")
+    longtail = paths["longtail_200k"]
+    r1, r2 = paths["pipeline_k4_50k"]
+    out = {k: os.path.join(work, f"serve_{k}.bam")
+           for k in ("cold", "warm", "pipeline", "fused")}
+    argvs = {
+        "cold": ["simplex", "-i", longtail, "-o", out["cold"]],
+        "warm": ["simplex", "-i", longtail, "-o", out["warm"]],
+        "pipeline": ["pipeline", "-i", r1, r2, *PIPELINE_OPTS, "-o",
+                     out["pipeline"], "--device", "cuda", "--stats-json",
+                     out["pipeline"] + ".json"],
+        "fused": ["simplex", "-i", longtail, "-o", out["fused"], "--device",
+                  "cuda", "--min-reads", "1", "--device-filter",
+                  *FILTER_OPTS, "--stats-json", out["fused"] + ".json"]}
+    standalone = {k: _standalone_digest(argvs[k])
+                  for k in ("pipeline", "fused")}
+    t_std = time.monotonic() - t0
+    kw = _child_kwargs()
+    kw.pop("text")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "fgumi_tpu_torch", "serve", "--socket", sock,
+         "--workers", "2", "--health-period", "1", "--metrics-port", "0",
+         "--report-dir", reports], stdin=subprocess.DEVNULL,
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True, **kw)
+    t_spawn = time.monotonic()
+    dlog = _DaemonLog(proc)
+    try:
+        up = dlog.listening.wait(SERVE_START_S)
+        check(up and proc.poll() is None,
+              f"serve did not start (rc {proc.poll()}):\n{dlog.tail()}")
+        start_s = time.monotonic() - t_spawn
+        check(dlog.warm_s is not None and dlog.metrics_port,
+              f"serve: no warm-up or metrics line:\n{dlog.tail()}")
+        client = ServeClient(sock, timeout=30)
+        cold = _serve_job(client, argvs["cold"])
+        warm = _serve_job(client, argvs["warm"])
+        check(records(out["cold"]) == records(out["warm"]),
+              "serve: the cold and warm jobs' records differ")
+        t_pair = time.monotonic()
+        ids = {k: client.submit(argvs[k])["id"] for k in ("pipeline",
+                                                          "fused")}
+        pair = {k: client.wait(jid, timeout=SERVE_JOB_S)
+                for k, jid in ids.items()}
+        pair_s = time.monotonic() - t_pair
+        launches = {}
+        for k, job in pair.items():
+            check(job["state"] == "done",
+                  f"serve {k} job: {job['state']}: {job['error']}")
+            check(_digest(out[k]) == standalone[k],
+                  f"serve {k} job: output differs from the standalone run")
+            with open(out[k] + ".json") as f:
+                launches[k] = json.load(f)["launches"]
+        p, fu = launches["pipeline"], launches["fused"]
+        check(p["umi_hamming"] >= 1 and p["consensus_wire_full"] >= 1
+              and not p["consensus_wire_filter"],
+              f"serve pipeline job launches {p}")
+        check(fu["consensus_wire_filter"] >= 1
+              and not fu["umi_hamming"], f"serve fused job launches {fu}")
+        # the canaries stand down while dispatches are in flight, and each
+        # finished job replaces the daemon's flat counters: wait for three
+        # after the last job
+        deadline = time.monotonic() + 30
+        stats = client.stats()
+        while stats["metrics"].get("device.canary.ok", 0) < SERVE_CANARIES \
+                and time.monotonic() < deadline:
+            time.sleep(0.5)
+            stats = client.stats()
+        ok = stats["metrics"].get("device.canary.ok", 0)
+        check(ok >= SERVE_CANARIES and not stats["metrics"].get(
+            "device.canary.failed"), f"serve stats: {ok} canaries ok, "
+            f"{stats['metrics'].get('device.canary.failed')} failed")
+        check(stats["breaker"]["state"] == "closed",
+              f"serve breaker {stats['breaker']}")
+        status, body = _get_url(
+            f"http://127.0.0.1:{dlog.metrics_port}/healthz")
+        check(status == 200, f"serve /healthz {status}: {body}")
+        status, text = _get_url(
+            f"http://127.0.0.1:{dlog.metrics_port}/metrics")
+        check(status == 200 and "fgumi_tpu_device_breaker_open 0" in text,
+              f"serve /metrics {status}")
+        k7_launches = stats["monitor"]["canary_launches"]
+        check(k7_launches >= SERVE_CANARIES,
+              f"serve: K7 launched {k7_launches} times")
+        client.shutdown()
+        rc = proc.wait(timeout=120)
+        check(rc == 0, f"serve exited {rc}:\n{dlog.tail()}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+        dlog.join()
+    summary = {
+        "warm_up_s": dlog.warm_s, "start_s": start_s,
+        "standalone_s": t_std,
+        "cold": {k: cold[k] for k in ("run_s", "client_wall_s")},
+        "warm": {k: warm[k] for k in ("run_s", "client_wall_s")},
+        "pair_s": pair_s,
+        "pair": {k: {"run_s": j["finished_unix"] - j["started_unix"],
+                     "launches": {n: c for n, c in launches[k].items()
+                                  if c}} for k, j in pair.items()},
+        "canaries_ok": ok, "canaries": stats["monitor"]["canaries"],
+        "k7_launches": k7_launches, "healthz": 200,
+        "phase_s": time.monotonic() - t0}
+    print("serve " + json.dumps(summary), flush=True)
+    k7 = check_canary_kernel(dev, 1 << 20, timed=True)
+    for n in (1, 17, (1 << 20) + 13):
+        check_canary_kernel(dev, n, timed=False)
+    return kernel_entry("canary_sum", k7, k7_launches, REPLACES_CANARY,
+                        "serve_health_monitor", CANARY_SOURCE)
 
 
 # -------------------------------------------------------------------- main
@@ -4551,13 +4854,14 @@ def main():
         from fgumi_tpu_torch.ops import cuda_kernel
     except ImportError as e:
         fail(f"the fgumi_tpu_torch package is missing: {e}", 2)
-    if sys.argv[1:] not in ([], ["--phase", "mapped"], ["--phase", "qc"]):
-        fail(f"unknown arguments {sys.argv[1:]} (none, or --phase mapped "
-             "or qc)", 2)
+    if sys.argv[1:] not in ([], ["--phase", "mapped"], ["--phase", "qc"],
+                            ["--phase", "serve"]):
+        fail(f"unknown arguments {sys.argv[1:]} (none, or --phase mapped, "
+             "qc or serve)", 2)
     # --phase mapped: the mapped phase alone, with fixed5_1M (whose
     # --device-filter run device_filter_env compares with); --phase qc: the
     # mapped chain and amplicon_paired's fast paired group, then the qc
-    # phase
+    # phase; --phase serve: the serve phase and its two inputs
     every_phase = not sys.argv[1:]
     phase = sys.argv[2] if not every_phase else None
     t_start = time.monotonic()
@@ -4569,23 +4873,32 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    inputs = dict(_mapped_inputs("")[0])
-    if phase == "qc":
-        inputs["amplicon_paired"] = (_amplicon, AMPLICONS["amplicon_paired"])
-    else:
-        inputs["fixed5_1M"] = (_simulate, INPUTS["fixed5_1M"])
+    # the inputs in the order the phases need them: the pool runs a few at
+    # a time, so each phase's inputs are built before the later ones'
     if every_phase:
-        inputs.update({
-            **{k: (_simulate, kw) for k, kw in INPUTS.items()},
-            **{k: (_simulate_duplex, kw) for k, kw in DUPLEX.items()},
-            **{k: (_simulate_codec, kw) for k, kw in CODEC.items()},
+        inputs = {
             **{k: (_amplicon, kw) for k, kw in AMPLICONS.items()},
             **{k: (_simulate_fastq, n) for k, n in FASTQ.items()},
+            "fixed5_1M": (_simulate, INPUTS["fixed5_1M"]),
+            **{k: (_simulate_duplex, kw) for k, kw in DUPLEX.items()},
+            **{k: (_simulate_codec, kw) for k, kw in CODEC.items()},
+            "meth_ref": (_meth_reference, METH_REF),
             **{k: (_methylation, kw) for k, kw in METHYLATION.items()},
-            "meth_ref": (_meth_reference, METH_REF)})
+            **{k: (_simulate, kw) for k, kw in INPUTS.items()},
+            **_mapped_inputs("")[0]}
+    elif phase == "serve":
+        inputs = {"longtail_200k": (_simulate, INPUTS["longtail_200k"]),
+                  "pipeline_k4_50k": (_simulate_fastq,
+                                      FASTQ["pipeline_k4_50k"])}
+    elif phase == "qc":
+        inputs = {"amplicon_paired": (_amplicon, AMPLICONS["amplicon_paired"]),
+                  **_mapped_inputs("")[0]}
+    else:
+        inputs = {"fixed5_1M": (_simulate, INPUTS["fixed5_1M"]),
+                  **_mapped_inputs("")[0]}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work, \
             cf.ProcessPoolExecutor(
-                max_workers=len(inputs),
+                max_workers=min(len(inputs), SIM_WORKERS),
                 mp_context=multiprocessing.get_context("spawn")) as pool:
         paths = {k: os.path.join(work, f"{k}.bam") for k in inputs}
         paths.update({k: (os.path.join(work, f"{k}.r1.fq.gz"),
@@ -4604,20 +4917,39 @@ def main():
             packed2_phase_test_shapes(dev)
         print(f"test shapes done at {time.monotonic() - t_start:.1f}s",
               flush=True)
-        for k, fut in sims.items():
-            n, dt = fut.result()
-            print(f"built input {k}: {n} records in {dt:.1f}s", flush=True)
-        print(f"inputs ready at {time.monotonic() - t_start:.1f}s",
-              flush=True)
+        built = set()
+
+        def ready(*names):
+            """Wait for the inputs ``names`` only: a phase starts as soon
+            as its own inputs are built (the 1,000,000-read correct_1M
+            simulation goes on beside the earlier phases)."""
+            for k in names:
+                if k not in built:
+                    n, dt = sims[k].result()
+                    built.add(k)
+                    print(f"built input {k}: {n} records in {dt:.1f}s",
+                          flush=True)
+            print(f"inputs {', '.join(names)} ready at "
+                  f"{time.monotonic() - t_start:.1f}s", flush=True)
+
+        mapped_inputs = tuple(_mapped_inputs("")[0])
         if every_phase:
-            e2e = e2e_phase(paths, work)
+            # the phases in the order their inputs are built (fixed5_1M, the
+            # longest simulation but correct_1M's, before the simplex cases)
+            ready(*AMPLICONS)
             groups = group_phase(paths, work)
+            ready(*FASTQ)
             pipes = pipeline_phase(paths, work)
             filter_phase(pipes["pipeline_400k"], work)
             sort_phase(paths, work)
+            ready(*DUPLEX)
             duplexes = duplex_phase(paths, work)
+            ready(*CODEC)
             codecs = codec_phase(paths, work)
+            ready(*METHYLATION, "meth_ref")
             methylation_phase(paths, work)
+            ready(*INPUTS)
+            e2e = e2e_phase(paths, work)
             rejects_phase(paths, work)
             staged = staged_phase(paths, work, staged_serial_runs(
                 e2e, groups, pipes, duplexes, codecs))
@@ -4628,19 +4960,26 @@ def main():
                 paths, work, groups["amplicon_group_adjacency_fast"])
             resilience_phase(paths, work, e2e, duplexes)
             dedup_compare_finish(compares)
+            k7 = serve_phase(paths, work, dev)
             fused = e2e["fixed5_1M"]["fused"]
             paired = groups["amplicon_paired_paired_fast"]
         elif phase == "mapped":
+            ready("fixed5_1M")
             fused = e2e_case("fixed5_1M_fused", paths["fixed5_1M"], work,
                              ["--min-reads", "1", "--device-filter",
                               *FILTER_OPTS], True)
+        elif phase == "serve":
+            ready(*SERVE_INPUTS)
+            k7 = serve_phase(paths, work, dev)
         if phase == "qc":
+            ready(*sims)
             mapped = {"mapped_chain_400k": mapped_chain_case(paths, work)}
             paired = group_case("amplicon_paired", "paired",
                                 paths["amplicon_paired"], work, "fast")
-        else:
+        elif phase != "serve":
+            ready(*mapped_inputs)
             mapped = mapped_phase(paths, work, fused)
-        if phase != "mapped":
+        if phase in (None, "qc"):
             qc_phase(os.path.join(work, "mapped.zipped.bam"),
                      os.path.join(work, "mapped.grouped.bam"), paired["out"],
                      work)
@@ -4648,6 +4987,8 @@ def main():
     if every_phase:
         entries = earlier_kernel_entries(dev, e2e, groups, pipes, duplexes,
                                          codecs, staged, dedup)
+    elif phase == "serve":
+        entries = []
     elif phase == "qc":
         k4 = kernel_phase_main_path(
             dev, {}, {"k4_paired": paired["largest_launch"]}, {})
@@ -4661,11 +5002,14 @@ def main():
             "consensus_wire_filter", k1f["k1f_fixed"],
             fused["launches"]["consensus_wire_filter"], REPLACES_FILTER,
             "fixed5_1M_fused")]
-    entries.append(kernel_entry(
-        "consensus_wire_full", check_k1_mapped(mapped["mapped_chain_400k"],
-                                               dev),
-        mapped["mapped_chain_400k"]["launches"]["consensus_wire_full"],
-        REPLACES_FULL, "mapped_chain_400k"))
+    if phase != "serve":
+        entries.append(kernel_entry(
+            "consensus_wire_full", check_k1_mapped(
+                mapped["mapped_chain_400k"], dev),
+            mapped["mapped_chain_400k"]["launches"]["consensus_wire_full"],
+            REPLACES_FULL, "mapped_chain_400k"))
+    if phase in (None, "serve"):
+        entries.append(k7)
     print(f"total {time.monotonic() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)

@@ -2,8 +2,11 @@
 ``correct``, ``fastq``, ``zipper``, ``sort``, ``merge``, ``group``,
 ``dedup``, ``simplex``, ``duplex``, ``codec``, ``filter``, ``clip``,
 ``downsample``, ``review``, ``duplex-metrics``, ``simplex-metrics``,
-``compare bams|metrics`` and ``simulate grouped-reads|duplex-reads|
-codec-reads|mapped-reads|fastq-reads|consensus-reads|correct-reads``.
+``compare bams|metrics``, ``simulate grouped-reads|duplex-reads|
+codec-reads|mapped-reads|fastq-reads|consensus-reads|correct-reads`` and
+the job service: ``serve`` (a warm daemon running submitted commands, each
+in its own telemetry scope, with the health canary K7 and the device
+breaker; ``serve/``), ``submit``, ``jobs`` and ``stats``.
 
 ``correct``, ``fastq``, ``zipper``, ``merge``, ``clip``, ``downsample``,
 ``review``, ``duplex-metrics`` and ``simplex-metrics`` are host commands
@@ -468,16 +471,26 @@ def _add_simplex(sub):
 
 
 def _kernel_counters():
+    """Every kernel's launches so far: this command's own tally inside a
+    telemetry scope (so two daemon jobs at once never count each other's),
+    else the process-wide counters."""
+    from .observe.scope import current_scope
     from .ops import combine, cuda_kernel, umi_hamming, wire
 
-    return {"consensus_wire_full": cuda_kernel.LAUNCHES,
-            "consensus_wire_filter": cuda_kernel.FILTER_LAUNCHES,
-            "consensus_wire_resident": cuda_kernel.RESIDENT_LAUNCHES,
-            "consensus_wire_packed2": cuda_kernel.PACKED2_LAUNCHES,
-            "packed2_full": wire.PACKED2_LAUNCHES,
-            "duplex_combine": combine.DUPLEX_COMBINE_LAUNCHES,
-            "codec_combine": combine.CODEC_COMBINE_LAUNCHES,
-            "umi_hamming": umi_hamming.HAMMING_LAUNCHES}
+    counters = {
+        "consensus_wire_full": (cuda_kernel, "LAUNCHES"),
+        "consensus_wire_filter": (cuda_kernel, "FILTER_LAUNCHES"),
+        "consensus_wire_resident": (cuda_kernel, "RESIDENT_LAUNCHES"),
+        "consensus_wire_packed2": (cuda_kernel, "PACKED2_LAUNCHES"),
+        "packed2_full": (wire, "PACKED2_LAUNCHES"),
+        "duplex_combine": (combine, "DUPLEX_COMBINE_LAUNCHES"),
+        "codec_combine": (combine, "CODEC_COMBINE_LAUNCHES"),
+        "umi_hamming": (umi_hamming, "HAMMING_LAUNCHES")}
+    scope = current_scope()
+    if scope is None:
+        return {name: getattr(m, c) for name, (m, c) in counters.items()}
+    return {name: scope.launches(f"{m.__name__}.{c}")
+            for name, (m, c) in counters.items()}
 
 
 def _no_cuda(command: str, device: str) -> bool:
@@ -3684,6 +3697,505 @@ def cmd_trace_merge(args, argv):
     return 0
 
 
+# ---------------------------------------------------------------- serving
+
+def _add_serve(sub):
+    p = sub.add_parser(
+        "serve",
+        help="Run the persistent job-service daemon (warm-kernel serving)")
+    p.add_argument("--socket", default=None, metavar="PATH",
+                   help="Unix-domain socket path to listen on (relative "
+                        "job paths resolve against the daemon's working "
+                        "directory). At least one of --socket/--tcp is "
+                        "required")
+    p.add_argument("--tcp", default=None, metavar="HOST:PORT",
+                   help="additionally listen on TCP: per-connection "
+                        "read/write deadlines (--io-timeout), a connection "
+                        "cap (--conn-cap), and — for any non-loopback HOST "
+                        "— a REQUIRED shared-secret handshake (--token-file "
+                        "or FGUMI_TPU_SERVE_TOKEN; the wire protocol "
+                        "executes submitted commands). Port 0 binds an "
+                        "ephemeral port. A busy port exits 2 before the "
+                        "device warm-up")
+    p.add_argument("--token-file", default=None, metavar="PATH",
+                   help="file holding the shared-secret handshake token "
+                        "for TCP connections (surrounding whitespace "
+                        "stripped; default: FGUMI_TPU_SERVE_TOKEN)")
+    p.add_argument("--conn-cap", type=int, default=None, metavar="N",
+                   help="max concurrent TCP connections; over-cap "
+                        "connects are answered with one explicit error "
+                        "frame and closed (default 64; 0 = unlimited)")
+    p.add_argument("--io-timeout", type=float, default=None, metavar="S",
+                   help="per-connection read/write deadline on TCP "
+                        "connections (default 30; 0 = none)")
+    p.add_argument("--workers", type=int, default=2,
+                   help="concurrent job slots (bounded worker pool)")
+    p.add_argument("--queue-limit", type=int, default=8,
+                   help="queued jobs admitted beyond the running ones; "
+                        "submissions past workers+queue-limit are rejected "
+                        "with an explicit reason")
+    p.add_argument("--max-per-client", type=int, default=0,
+                   help="per-submitter admission quota: a `submit "
+                        "--client ID` may hold at most this many active "
+                        "(queued+running) jobs; over-quota submits are "
+                        "rejected with an explicit reason (0 = unlimited; "
+                        "anonymous submits are never limited)")
+    p.add_argument("--report-dir", default=None, metavar="DIR",
+                   help="write per-job run reports (<job>.report.json) and "
+                        "on-request traces here (created if missing)")
+    p.add_argument("--max-frame-bytes", type=int, default=None,
+                   help="protocol frame size cap (default 1 MiB); larger "
+                        "frames are rejected and the connection closed")
+    p.add_argument("--no-warmup", action="store_true",
+                   help="skip the startup warm-up (torch's CUDA context "
+                        "and every kernel library built and loaded): the "
+                        "first job pays the cold start, and a job with "
+                        "--device cuda on a host without CUDA fails as it "
+                        "does standalone")
+    p.add_argument("--journal", default=None, metavar="PATH",
+                   help="append-only job journal (JSONL WAL): submits and "
+                        "state transitions are fsync'd here, and on "
+                        "restart incomplete jobs are requeued in order. "
+                        "Unset = in-memory only")
+    p.add_argument("--lease-scan-period", type=float, default=None,
+                   metavar="S",
+                   help="fleet lease scan period; only read with "
+                        "--journal-dir (not yet ported)")
+    p.add_argument("--health-period", type=float, default=None,
+                   metavar="S",
+                   help="run a tiny device canary (kernel K7) every S "
+                        "seconds feeding the device circuit breaker "
+                        "(default: FGUMI_TPU_HEALTH_PERIOD_S, else off)")
+    p.add_argument("--metrics-port", type=int, default=None, metavar="PORT",
+                   help="serve Prometheus text-format /metrics and a "
+                        "/healthz liveness endpoint on this loopback HTTP "
+                        "port (0 = an ephemeral port, logged at startup; "
+                        "unset = no listener). The scrape and the `stats` "
+                        "protocol op read the same live snapshot")
+    p.add_argument("--coalesce-window-ms", type=float, default=None,
+                   metavar="MS",
+                   help="cross-job dispatch coalescing window; 0 (off) is "
+                        "what the port does, a window above 0 is not yet "
+                        "ported")
+    g = p.add_argument_group("not yet ported / JAX-only",
+                             "reference options this port refuses (exit 2)")
+    g.add_argument("--journal-dir", default=None, metavar="DIR",
+                   help="fleet journaling with leases (not yet ported)")
+    g.add_argument("--fleet-id", default=None, metavar="NAME",
+                   help="identity in --journal-dir (not yet ported)")
+    g.add_argument("--compile-cache", default=None, metavar="DIR",
+                   help="persistent XLA compile cache (JAX-only)")
+    p.set_defaults(func=cmd_serve)
+
+
+def _serve_refusal(args):
+    """The line refusing a ``serve`` option of a part the port lacks, or
+    None: fleet operation, the coalescer's window, the XLA cache."""
+    if args.journal_dir is not None:
+        return ("--journal-dir: not yet ported (fleet operation: journal "
+                "leases and takeover)")
+    if args.fleet_id is not None:
+        return "--fleet-id: not yet ported (fleet operation)"
+    if args.coalesce_window_ms is not None and args.coalesce_window_ms > 0:
+        return (f"--coalesce-window-ms {args.coalesce_window_ms:g}: not yet "
+                "ported (the cross-job dispatch coalescer; 0 = off is what "
+                "the port does)")
+    if args.compile_cache is not None:
+        return ("--compile-cache: JAX-only (the persistent XLA compile "
+                "cache; the port compiles its kernels once into _build/)")
+    return None
+
+
+def cmd_serve(args, argv):
+    import signal
+
+    from .ops.breaker import monitor_period_s
+    from .serve import protocol as _proto
+    from .serve import transport as transport_mod
+    from .serve.daemon import JobService, SocketBusy
+
+    line = _serve_refusal(args)
+    if line is not None:
+        log.error("%s", line)
+        return 2
+    if not args.socket and not args.tcp:
+        log.error("serve needs --socket and/or --tcp")
+        return 2
+    if args.workers < 1:
+        log.error("--workers must be >= 1")
+        return 2
+    if args.queue_limit < 0:
+        log.error("--queue-limit must be >= 0")
+        return 2
+    if args.max_per_client < 0:
+        log.error("--max-per-client must be >= 0")
+        return 2
+    if args.max_frame_bytes is not None and args.max_frame_bytes < 1024:
+        # a sub-1KiB cap cannot carry a realistic submit frame, and 0 or a
+        # negative value would defeat the size limit entirely
+        log.error("--max-frame-bytes must be >= 1024")
+        return 2
+    if args.metrics_port is not None \
+            and not 0 <= args.metrics_port <= 65535:
+        log.error("--metrics-port must be in 0..65535")
+        return 2
+    if args.conn_cap is not None and args.conn_cap < 0:
+        log.error("--conn-cap must be >= 0 (0 = unlimited)")
+        return 2
+    if args.coalesce_window_ms is not None and args.coalesce_window_ms < 0:
+        log.error("--coalesce-window-ms must be >= 0 (0 = off)")
+        return 2
+    if args.report_dir:
+        try:
+            os.makedirs(args.report_dir, exist_ok=True)
+        except OSError as e:
+            log.error("cannot create --report-dir %s: %s", args.report_dir, e)
+            return 2
+    tcp = None
+    if args.tcp:
+        try:
+            _, tcp = transport_mod.parse_address("tcp:" + args.tcp)
+        except ValueError as e:
+            log.error("--tcp: %s", e)
+            return 2
+    try:
+        token = transport_mod.load_token(args.token_file)
+    except (OSError, ValueError) as e:
+        log.error("--token-file: %s", e)
+        return 2
+    health = args.health_period if args.health_period is not None \
+        else monitor_period_s()
+    if health < 0:
+        log.error("--health-period must be >= 0")
+        return 2
+    service = JobService(
+        args.socket, workers=args.workers, queue_limit=args.queue_limit,
+        report_dir=args.report_dir,
+        max_frame_bytes=args.max_frame_bytes or _proto.MAX_FRAME_BYTES,
+        journal_path=args.journal, health_period_s=health,
+        max_per_client=args.max_per_client,
+        metrics_port=args.metrics_port, tcp=tcp, auth_token=token,
+        conn_cap=(args.conn_cap if args.conn_cap is not None
+                  else transport_mod.DEFAULT_CONN_CAP),
+        io_timeout_s=(args.io_timeout if args.io_timeout is not None
+                      else transport_mod.DEFAULT_IO_TIMEOUT_S))
+    # claim the listeners BEFORE the device warm-up: an accidental
+    # duplicate start must fail fast without touching the card
+    try:
+        service.bind()
+    except SocketBusy as e:
+        log.error("%s", e)
+        service.close()
+        return 2
+    except ValueError as e:
+        # a refused listener configuration (non-loopback TCP without a
+        # handshake token)
+        log.error("%s", e)
+        service.close()
+        return 2
+    except OSError as e:
+        if service._unix is not None and service._unix.sock is None:
+            log.error("cannot bind %s: %s", args.socket, e)
+        elif args.tcp and (service._tcp_listener is None
+                           or service._tcp_listener.sock is None):
+            log.error("cannot bind tcp %s: %s", args.tcp, e)
+        else:
+            log.error("cannot bind metrics port %s: %s",
+                      args.metrics_port, e)
+        service.close()
+        return 2
+    if not args.no_warmup:
+        try:
+            service.warm_up()
+        except Exception as e:  # noqa: BLE001 - one line, then exit 2
+            log.error("serve: warm-up failed: %s: %s", type(e).__name__,
+                      str(e).strip().splitlines()[0] if str(e).strip()
+                      else "")
+            service.close()
+            return 2
+    service.start()
+
+    def _on_signal(signum, frame):
+        # SIGTERM drain contract: stop admitting, finish queued + running.
+        # Event-set only — no locks or logging in signal context; the main
+        # loop below performs (and logs) the actual drain
+        service.request_shutdown()
+
+    old = {}
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        try:
+            old[sig] = signal.signal(sig, _on_signal)
+        except (ValueError, OSError):
+            pass  # not the main thread (in-process test harness)
+    try:
+        service.wait_until_shutdown()
+    finally:
+        for sig, handler in old.items():
+            signal.signal(sig, handler)
+        service.close()
+    return 0
+
+
+def _add_submit(sub):
+    p = sub.add_parser(
+        "submit",
+        help="Submit a command to a running serve daemon (warm execution)")
+    p.add_argument("--socket", required=True, metavar="ADDR",
+                   help="daemon address: a Unix socket path (serve "
+                        "--socket), unix:PATH, or tcp:HOST:PORT (serve "
+                        "--tcp)")
+    p.add_argument("--token-file", default=None, metavar="PATH",
+                   help="shared-secret handshake token for TCP daemons "
+                        "(default: FGUMI_TPU_SERVE_TOKEN)")
+    p.add_argument("--priority", default="normal",
+                   choices=["high", "normal", "low"],
+                   help="scheduling class (FIFO within a class)")
+    p.add_argument("--tag", default=None,
+                   help="free-form label kept on the job record")
+    p.add_argument("--job-trace", action="store_true",
+                   help="ask the daemon for a per-job Perfetto trace next "
+                        "to the job's run report (needs serve --report-dir)")
+    p.add_argument("--dedupe", default=None, metavar="KEY",
+                   help="idempotency key: resubmitting the same key "
+                        "returns the original job (even across a daemon "
+                        "restart with serve --journal) instead of running "
+                        "it twice")
+    p.add_argument("--client", default=None, metavar="ID",
+                   help="submitter identity for the daemon's per-client "
+                        "admission quota (serve --max-per-client); "
+                        "omitted = anonymous, never quota-limited")
+    p.add_argument("--no-wait", action="store_true",
+                   help="return immediately after admission (poll later "
+                        "with `jobs`)")
+    p.add_argument("--timeout", type=float, default=None,
+                   help="max seconds to wait for completion (with waiting)")
+    p.add_argument("job_argv", nargs=argparse.REMAINDER, metavar="COMMAND",
+                   help="the command to run, e.g. `submit --socket S "
+                        "simplex -i in.bam -o out.bam` (everything after "
+                        "the submit options, verbatim)")
+    p.set_defaults(func=cmd_submit)
+
+
+def _submit_with_shed_retry(client, submit_kwargs: dict, wait: bool,
+                            timeout: float = None, sleep=time.sleep):
+    """Submit, honoring the governor's resource-pressure hint.
+
+    A shed (``resource_pressure`` with ``retry_after_s``) is not a
+    failure when the caller intends to wait: sleep EXACTLY the daemon's
+    hint and resubmit instead of hot-looping or giving up, bounded by
+    the overall ``timeout``. Raises the final ShedError when not waiting
+    or out of time. ``sleep`` is injectable for tests."""
+    from .serve.client import ShedError
+
+    deadline = None if timeout is None else time.monotonic() + timeout
+    while True:
+        try:
+            return client.submit(**submit_kwargs)
+        except ShedError as e:
+            if not wait:
+                raise
+            hint = max(float(e.retry_after_s), 0.05)
+            if deadline is not None:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    raise
+                hint = min(hint, remaining)
+            log.info("submit: daemon shedding under resource pressure; "
+                     "retrying in %.1fs (%s)", hint, e)
+            sleep(hint)
+
+
+def _serve_client(args, label: str):
+    """(client, rc) for the serve-client verbs: resolves the handshake
+    token and the address; a config problem logs one line and returns
+    (None, 2)."""
+    from .serve import transport as transport_mod
+    from .serve.client import ServeClient
+
+    try:
+        token = transport_mod.load_token(args.token_file)
+        return ServeClient(args.socket, token=token), 0
+    except (OSError, ValueError) as e:
+        log.error("%s: %s", label, e)
+        return None, 2
+
+
+def cmd_submit(args, argv):
+    from .serve.client import ServeError
+
+    job_argv = list(args.job_argv)
+    if job_argv and job_argv[0] == "--":
+        job_argv = job_argv[1:]
+    if not job_argv:
+        log.error("submit: no command given (usage: %s submit --socket S "
+                  "<command> [args...])", PROGRAM_ID)
+        return 2
+    client, rc = _serve_client(args, "submit")
+    if client is None:
+        return rc
+    # ONE wall-clock budget for the whole command: shed-retry sleeps and
+    # the completion wait share it, so --timeout 60 means 60, not 120
+    deadline = None if args.timeout is None \
+        else time.monotonic() + args.timeout
+    try:
+        job = _submit_with_shed_retry(
+            client,
+            dict(argv=job_argv, priority=args.priority, argv0=PROGRAM_ID,
+                 tag=args.tag, trace=args.job_trace, dedupe=args.dedupe,
+                 client=args.client),
+            wait=not args.no_wait, timeout=args.timeout)
+    except ServeError as e:
+        log.error("submit: %s", e)
+        return 2
+    log.info("submitted %s (%s): %s", job["id"], job["state"],
+             " ".join(job["argv"]))
+    if args.no_wait:
+        print(job["id"])
+        return 0
+    try:
+        job = client.wait(
+            job["id"],
+            timeout=None if deadline is None
+            else max(deadline - time.monotonic(), 0.0))
+    except ServeError as e:
+        log.error("submit: %s", e)
+        return 2
+    rc = job["exit_status"]
+    if job["state"] == "done":
+        log.info("job %s done in %.2fs", job["id"],
+                 job["finished_unix"] - job["started_unix"])
+        return 0
+    if job["state"] == "cancelled":
+        log.error("job %s was cancelled", job["id"])
+        return 130
+    log.error("job %s failed: %s", job["id"], job["error"])
+    return rc if isinstance(rc, int) and rc else 1
+
+
+def _add_stats_command(sub):
+    p = sub.add_parser(
+        "stats",
+        help="Print a running serve daemon's live introspection snapshot "
+             "(scheduler/quota/journal/breaker/governor/device/monitor "
+             "state + latency histogram summaries) as JSON")
+    p.add_argument("--socket", required=True, metavar="ADDR",
+                   help="daemon address: a Unix socket path, unix:PATH, "
+                        "or tcp:HOST:PORT")
+    p.add_argument("--token-file", default=None, metavar="PATH",
+                   help="shared-secret handshake token for TCP daemons "
+                        "(default: FGUMI_TPU_SERVE_TOKEN)")
+    p.add_argument("--section", default=None, metavar="KEY",
+                   help="print only one top-level section of the snapshot "
+                        "(e.g. latency, scheduler, breaker)")
+    p.set_defaults(func=cmd_stats)
+
+
+def cmd_stats(args, argv):
+    from .serve.client import ServeError
+
+    client, rc = _serve_client(args, "stats")
+    if client is None:
+        return rc
+    try:
+        stats = client.stats()
+    except ServeError as e:
+        # includes an old daemon's rejection ("unknown op 'stats' ...")
+        # verbatim — the version-negotiation contract
+        log.error("stats: %s", e)
+        return 2
+    if args.section is not None:
+        if args.section not in stats:
+            log.error("stats: no section %r (have: %s)", args.section,
+                      ", ".join(sorted(stats)))
+            return 2
+        stats = {args.section: stats[args.section]}
+    print(json.dumps(stats, indent=1, sort_keys=True))
+    return 0
+
+
+def _add_jobs(sub):
+    p = sub.add_parser(
+        "jobs", help="Inspect or manage a serve daemon's job queue")
+    p.add_argument("--socket", required=True, metavar="ADDR",
+                   help="daemon address: a Unix socket path, unix:PATH, "
+                        "or tcp:HOST:PORT")
+    p.add_argument("--token-file", default=None, metavar="PATH",
+                   help="shared-secret handshake token for TCP daemons "
+                        "(default: FGUMI_TPU_SERVE_TOKEN)")
+    g = p.add_mutually_exclusive_group()
+    g.add_argument("--id", default=None, help="show one job as JSON")
+    g.add_argument("--cancel", default=None, metavar="ID",
+                   help="cancel a queued job")
+    g.add_argument("--drain", action="store_true",
+                   help="close admission (running/queued jobs finish; the "
+                        "daemon keeps answering status)")
+    g.add_argument("--shutdown", action="store_true",
+                   help="drain, finish queued+running jobs, then exit")
+    g.add_argument("--ping", action="store_true",
+                   help="print daemon liveness/config as JSON")
+    g.add_argument("--scatter", nargs="?", const="", default=None,
+                   metavar="WHALE_ID",
+                   help="print a `balance --scatter` front end's whale "
+                        "scatter section as JSON (with WHALE_ID: that "
+                        "whale's per-shard states); a daemon answers its "
+                        "documented refusal")
+    p.set_defaults(func=cmd_jobs)
+
+
+def cmd_jobs(args, argv):
+    from .serve.client import ServeError
+
+    client, rc = _serve_client(args, "jobs")
+    if client is None:
+        return rc
+    try:
+        if args.ping:
+            print(json.dumps(client.ping(), indent=1, sort_keys=True))
+            return 0
+        if args.scatter is not None:
+            sc = client.scatter(args.scatter or None)
+            print(json.dumps(sc, indent=1, sort_keys=True))
+            return 0
+        if args.id:
+            print(json.dumps(client.job(args.id), indent=1, sort_keys=True))
+            return 0
+        if args.cancel:
+            job = client.cancel(args.cancel)
+            log.info("job %s cancelled", job["id"])
+            return 0
+        if args.drain:
+            depth = client.drain()
+            if "running" in depth:
+                log.info("draining: %d running, %d queued",
+                         depth["running"], depth["queued"])
+            else:  # a balance front answers with its own (depthless) ack
+                log.info("draining: balancer admission closed")
+            return 0
+        if args.shutdown:
+            depth = client.shutdown()
+            if "running" in depth:
+                log.info("shutdown requested: %d running, %d queued to "
+                         "finish", depth["running"], depth["queued"])
+            else:
+                log.info("shutdown requested: balancer draining and "
+                         "exiting")
+            return 0
+        status = client.status()
+        jobs = status["jobs"]
+        if not jobs:
+            print("no jobs")
+            return 0
+        print(f"{'id':<8} {'state':<10} {'prio':<7} {'rc':<4} command")
+        for j in jobs:
+            rc = "" if j["exit_status"] is None else str(j["exit_status"])
+            print(f"{j['id']:<8} {j['state']:<10} {j['priority']:<7} "
+                  f"{rc:<4} {' '.join(j['argv'])}")
+        return 0
+    except ServeError as e:
+        log.error("jobs: %s", e)
+        return 2
+
+
 def _add_global_options(parser):
     """The reference's global options (fgumi_tpu/cli.py build_parser)."""
     parser.add_argument("-v", "--verbose", action="store_true",
@@ -3813,7 +4325,8 @@ def _refuse_globals(args) -> int:
     spec = faults.unported_spec()
     if spec is not None:
         log.error("FGUMI_TPU_FAULT %s: not yet ported (device.fetch needs "
-                  "the result sentinel, serve.* the job service)", spec)
+                  "the result sentinel, serve.coalesce the cross-job "
+                  "coalescer)", spec)
         return 2
     return 0
 
@@ -3845,20 +4358,26 @@ def build_parser():
     _add_compare(sub)
     _add_simulate(sub)
     _add_trace_merge(sub)
+    _add_serve(sub)
+    _add_submit(sub)
+    _add_stats_command(sub)
+    _add_jobs(sub)
     return parser
 
 
-def _run_command(args, argv):
+def _run_command(args, argv, command_line=None):
     """Dispatch to the subcommand under the reference's exit-code contract:
     2 on a diagnosed input problem, 3 on an injected fault, 4 on resource
     exhaustion (device memory too) or a full disk, 5 on a refuted output
     audit, 1 on a broken pipe or a CUDA error in a dispatch and 130 on an
-    interrupt, each with at most one line."""
+    interrupt, each with at most one line. The command records
+    ``command_line`` in its outputs' provenance (@PG CL), by default the
+    program and ``argv``."""
     from .observe.flight import FLIGHT
     from .utils.faults import InjectedFault
 
     try:
-        return args.func(args, [PROGRAM_ID] + argv)
+        return args.func(args, command_line or [PROGRAM_ID] + argv)
     except (InputFormatError, EOFError) as e:
         # a diagnosed input problem (a truncated or corrupt stream, a torn
         # record): one line with the path and offset, not a traceback
@@ -4000,6 +4519,7 @@ def _main_scoped(args, argv):
     """The outermost invocation's body: the telemetry lifecycle (flight
     recorder, trace, heartbeat, run report) around the dispatch."""
     from .observe.flight import FLIGHT, install_signal_dump
+    from .observe.scope import command_line_override
 
     trace_path, report_path, hb_s = _telemetry_config(args)
     # the process's resource governor: budget rebalancing and the memory
@@ -4032,7 +4552,9 @@ def _main_scoped(args, argv):
     rc = 1  # the report's value when an unmapped exception escapes
     token = _MAIN_DEPTH.set(_MAIN_DEPTH.get() + 1)
     try:
-        rc = _run_command(args, argv)
+        # a serve job records its client's command line (observe.scope.
+        # command_argv), so its outputs equal the standalone command's
+        rc = _run_command(args, argv, command_line_override())
         return rc
     except Exception as e:
         # anything the exit-code contract does not map is a crash: freeze

@@ -34,13 +34,14 @@ _JOB_CTX = contextvars.ContextVar("fgumi_tpu_torch_job_context",
 
 
 class TelemetryScope:
-    """One command's telemetry: metrics + device stats + tracer.
+    """One command's telemetry: metrics + device stats + tracer, and its
+    tally of kernel launches.
 
     The ``DeviceStats`` is made on first use (it lives in ``ops.kernel``,
     which a command that never touches the device does not import)."""
 
     __slots__ = ("label", "metrics", "tracer", "_device_stats", "_lock",
-                 "trace_id", "parent_span_id", "job_id", "hops")
+                 "trace_id", "parent_span_id", "job_id", "hops", "_launches")
 
     def __init__(self, label: str = None):
         from .metrics import MetricsRegistry
@@ -56,6 +57,9 @@ class TelemetryScope:
         self.job_id = None
         #: upstream hop wall-clock timestamps (None standalone)
         self.hops = None
+        #: kernel launches of this command, by counter
+        #: (``"<module>.<counter>"``; ``ops.cuda_kernel.count_launch``)
+        self._launches = {}
 
     def device_stats(self, factory):
         """This scope's DeviceStats, made on first use by ``factory`` (the
@@ -68,6 +72,15 @@ class TelemetryScope:
     def device_stats_if_any(self):
         with self._lock:
             return self._device_stats
+
+    def count_launch(self, counter: str):
+        with self._lock:
+            self._launches[counter] = self._launches.get(counter, 0) + 1
+
+    def launches(self, counter: str) -> int:
+        """This command's launches counted under ``counter``."""
+        with self._lock:
+            return self._launches.get(counter, 0)
 
 
 def current_scope():
@@ -143,6 +156,12 @@ def adopt_job_context(scope: TelemetryScope):
     scope.trace_id = ctx["trace_id"]
     scope.parent_span_id = ctx["parent_span_id"]
     scope.hops = ctx["hops"]
+
+
+def command_line_override():
+    """The :class:`command_argv` override of the provenance command line,
+    or None outside one (a standalone command records its own argv)."""
+    return _ARGV.get()
 
 
 def current_argv():

@@ -1,0 +1,510 @@
+"""Device-wedge circuit breaker: closed / open / half-open.
+
+A port of the JAX package's ``fgumi_tpu/ops/breaker.py``: the process's
+memory of device weather, fed where the port's dispatches resolve and by
+the serve daemon's health monitor:
+
+- **closed** — normal operation. A clean dispatch (``ops/kernel.py``
+  ``device_retry_call``) resets the failure score; a dispatch whose bounded
+  retry ran out adds one point, and a canary failure trips the breaker
+  immediately — a wedge is categorical evidence, not a data point.
+- **open** — after a cooldown the breaker moves to half-open. Re-trips
+  while half-open double the cooldown (bounded to 8x) — close hysteresis,
+  so a flapping link converges to long open stretches instead of
+  oscillating.
+- **half-open** — at most one probe claimed at a time (:meth:`allow`);
+  ``probe_successes`` consecutive clean resolves close the breaker; any
+  failure reopens it.
+
+The port has no offload router and no host engine, so the breaker moves no
+work: it records state, feeds the ``stats`` op, ``/metrics`` and
+``/healthz`` (503 while open), and the run report's ``device.breaker``
+section. Whether an open breaker refuses device dispatches is decided with
+the router. :meth:`~DeviceBreaker.record_sdc` and the audit methods are
+ported as they are; their caller, the result sentinel, is not ported yet.
+
+Env contract (docs/resilience.md "Self-healing"):
+
+- ``FGUMI_TPU_BREAKER=0`` — disable entirely (always closed).
+- ``FGUMI_TPU_BREAKER_FAILURES`` — closed-state failure score that opens
+  the breaker (default 3 permanent dispatch failures).
+- ``FGUMI_TPU_BREAKER_COOLDOWN_S`` — open -> half-open delay (default 15;
+  doubles per consecutive re-trip up to 8x).
+- ``FGUMI_TPU_BREAKER_PROBES`` — consecutive half-open successes required
+  to close (default 2).
+- ``FGUMI_TPU_AUDIT_READMIT`` — audited probe dispatches required to lift
+  an ``sdc`` quarantine (default 4; ``0`` = an SDC-tripped device is
+  never re-admitted this process). See below.
+- ``FGUMI_TPU_HEALTH_PERIOD_S`` — health-monitor canary period for
+  long-lived processes (the serve daemon); 0 (default) = no monitor.
+
+SDC quarantine (the JAX package's ops/sentinel.py): a shadow-audit divergence —
+the device returned an answer the f64 host oracle refutes — trips the
+breaker via :meth:`DeviceBreaker.record_sdc` and is categorically worse
+than a wedge: a wedged device is *slow*, a silently-corrupting device is
+*lying*, and time alone is no evidence it stopped. So unlike every other
+trip reason, the cooldown does NOT half-open the breaker back on its own:
+while quarantined, re-admission requires ``FGUMI_TPU_AUDIT_READMIT``
+probe dispatches that are themselves *fully audited* (the sentinel forces
+an inline shadow audit on every dispatch while
+:meth:`DeviceBreaker.audit_required` is true); only the sentinel's
+:meth:`DeviceBreaker.record_audit_clean` verdicts count toward closing —
+an ordinary clean resolve proves the device answered, not that it
+answered *correctly*. A fresh divergence during probing re-trips with the
+usual doubled cooldown.
+
+Breaker state is a per-process fact (the device
+is shared by every job in the process); the *metrics* it stamps
+(``device.breaker.state`` gauge, ``device.breaker.transitions`` counter)
+land in whichever telemetry scope observed the transition, and the run
+report carries :meth:`DeviceBreaker.snapshot` so a degraded run is
+diagnosable from its artifact alone.
+"""
+
+import logging
+import os
+import threading
+import time
+
+log = logging.getLogger("fgumi_tpu_torch")
+
+CLOSED, OPEN, HALF_OPEN = "closed", "open", "half-open"
+
+#: cooldown growth cap: re-trips double the cooldown up to this factor.
+MAX_COOLDOWN_FACTOR = 8
+
+
+def _env_int(name, default):
+    try:
+        return max(int(os.environ.get(name, str(default))), 1)
+    except ValueError:
+        return default
+
+
+def _env_float(name, default):
+    try:
+        return max(float(os.environ.get(name, str(default))), 0.1)
+    except ValueError:
+        return default
+
+
+def audit_readmit_probes() -> int:
+    """Audited probe dispatches required to lift an SDC quarantine
+    (``FGUMI_TPU_AUDIT_READMIT``, default 4; 0 = never re-admit)."""
+    try:
+        return max(int(os.environ.get("FGUMI_TPU_AUDIT_READMIT", "4")), 0)
+    except ValueError:
+        return 4
+
+
+class DeviceBreaker:
+    """The closed/open/half-open state machine (thread-safe).
+
+    ``now`` is injectable for tests; production uses ``time.monotonic``.
+    Feeding methods are called from ``ops/kernel.device_retry_call`` and
+    the health monitor; :meth:`allow` has no caller until the router is
+    ported.
+    """
+
+    def __init__(self, now=time.monotonic):
+        self._now = now
+        self._lock = threading.Lock()
+        self.reset()
+
+    # ------------------------------------------------------------- config
+
+    @staticmethod
+    def enabled() -> bool:
+        return os.environ.get("FGUMI_TPU_BREAKER", "1").strip().lower() \
+            not in ("0", "false", "off")
+
+    @staticmethod
+    def _failure_threshold() -> int:
+        return _env_int("FGUMI_TPU_BREAKER_FAILURES", 3)
+
+    @staticmethod
+    def _cooldown_s() -> float:
+        return _env_float("FGUMI_TPU_BREAKER_COOLDOWN_S", 15.0)
+
+    @staticmethod
+    def _probes_to_close() -> int:
+        return _env_int("FGUMI_TPU_BREAKER_PROBES", 2)
+
+    # -------------------------------------------------------------- state
+
+    def reset(self):
+        """Back to pristine closed (tests; per-process otherwise)."""
+        with self._lock:
+            self._state = CLOSED
+            self._score = 0              # closed-state failure score
+            self._opened_at = None
+            self._trips = 0              # consecutive re-trips (hysteresis)
+            self._probe_inflight = False
+            self._probe_claimed_at = None
+            self._probe_successes = 0
+            # SDC quarantine (ops/sentinel.py): while set, cooldown alone
+            # cannot re-admit the device — only audited-clean probes can
+            self._sdc_tripped = False
+            self._audit_probe_ok = 0
+            self.transitions = []        # [(t_mono, from, to, reason)]
+            self.deadline_overruns = 0
+            self.transient_failures = 0
+            self.canary_failures = 0
+            self.sdc_trips = 0
+            self.successes = 0
+
+    @property
+    def state(self) -> str:
+        with self._lock:
+            return self._advance_locked()
+
+    def _advance_locked(self) -> str:
+        """Open -> half-open once the cooldown has elapsed; release a
+        probe slot whose batch provably lost its feeder."""
+        if self._state == OPEN:
+            cool = self._cooldown_s() * min(2 ** max(self._trips - 1, 0),
+                                            MAX_COOLDOWN_FACTOR)
+            if self._now() - self._opened_at >= cool:
+                if self._sdc_tripped and audit_readmit_probes() <= 0:
+                    # quarantined with re-admission disabled: the device
+                    # stays host-forced for the rest of the process — a
+                    # corrupting chip earns no automatic second chance
+                    pass
+                elif self._sdc_tripped:
+                    self._transition_locked(
+                        HALF_OPEN, "cooldown elapsed (sdc quarantine: "
+                        "re-admission requires audited probes)")
+                else:
+                    self._transition_locked(HALF_OPEN, "cooldown elapsed")
+        if (self._state == HALF_OPEN and self._probe_inflight
+                and self._probe_claimed_at is not None
+                and self._now() - self._probe_claimed_at
+                > self._probe_timeout_s()):
+            # the probe batch died without feeding back — a non-weather
+            # exception (pad/pack error, programming bug) between the
+            # router's allow() and the resolve bypasses record_success /
+            # record_*_failure. Without this release the slot leaks and
+            # the breaker denies the device for the rest of the process.
+            log.warning("device breaker: half-open probe never resolved; "
+                        "releasing the probe slot")
+            self._probe_inflight = False
+        return self._state
+
+    @staticmethod
+    def _probe_timeout_s() -> float:
+        """How long a claimed probe slot may stay outstanding: the
+        dispatch-deadline ceiling plus slack. The port has no dispatch
+        deadlines yet (they come with the feeder), so it is the
+        reference's value when no ceiling is configured: 300 + 60 s."""
+        return 300.0 + 60.0
+
+    def _transition_locked(self, new: str, reason: str):
+        old = self._state
+        if old == new:
+            return
+        self._state = new
+        self.transitions.append(
+            (round(self._now(), 3), old, new, reason))
+        del self.transitions[:-64]  # bounded
+        if new == OPEN:
+            self._opened_at = self._now()
+            self._trips += 1
+        if new == HALF_OPEN:
+            self._probe_inflight = False
+            self._probe_successes = 0
+            self._audit_probe_ok = 0
+        if new == CLOSED:
+            self._score = 0
+            self._trips = 0
+        level = logging.WARNING if new == OPEN else logging.INFO
+        log.log(level, "device breaker: %s -> %s (%s)", old, new, reason)
+        self._stamp_metrics(new)
+        # flight-ring note only — the black-box dump happens outside this
+        # lock (the record_* callers), because dump() re-enters snapshot()
+        from ..observe.flight import FLIGHT
+
+        FLIGHT.note("breaker.transition", state=new, previous=old,
+                    reason=reason)
+
+    @staticmethod
+    def _stamp_metrics(state: str):
+        # import inside: breaker must stay importable before observe
+        from ..observe.metrics import METRICS
+
+        METRICS.set("device.breaker.state", state)
+        METRICS.inc("device.breaker.transitions")
+        if state == OPEN:
+            METRICS.inc("device.breaker.opened")
+
+    # ------------------------------------------------------------- gating
+
+    def allow(self) -> bool:
+        """May the next batch go to the device?
+
+        closed -> yes. open -> no. half-open -> yes for ONE outstanding
+        probe at a time (this call claims the probe slot; the matching
+        record_success / failure releases it)."""
+        if not self.enabled():
+            return True
+        with self._lock:
+            state = self._advance_locked()
+            if state == CLOSED:
+                return True
+            if state == OPEN:
+                return False
+            if self._probe_inflight:
+                return False
+            self._probe_inflight = True
+            self._probe_claimed_at = self._now()
+            return True
+
+    def blocked(self) -> bool:
+        """Non-claiming check: True when the device must not be used
+        (open, or half-open with the probe slot taken)."""
+        if not self.enabled():
+            return False
+        with self._lock:
+            state = self._advance_locked()
+            return state == OPEN or (state == HALF_OPEN
+                                     and self._probe_inflight)
+
+    # ------------------------------------------------------------ feeding
+
+    def record_success(self):
+        """One clean device resolve (or canary pass)."""
+        with self._lock:
+            self.successes += 1
+            state = self._advance_locked()
+            if state == CLOSED:
+                self._score = 0
+                return
+            if state == HALF_OPEN:
+                self._probe_inflight = False
+                if self._sdc_tripped:
+                    # a clean resolve proves the probe *answered*, not that
+                    # it answered correctly — under SDC quarantine only the
+                    # sentinel's audited verdict (record_audit_clean, fed
+                    # after the inline shadow audit compares this very
+                    # probe against the f64 oracle) counts toward closing
+                    return
+                self._probe_successes += 1
+                if self._probe_successes >= self._probes_to_close():
+                    self._transition_locked(
+                        CLOSED,
+                        f"{self._probe_successes} consecutive probe "
+                        "successes")
+
+    def _failure_locked(self, reason: str, weight: int):
+        state = self._advance_locked()
+        if state == HALF_OPEN:
+            self._probe_inflight = False
+            self._transition_locked(OPEN, f"probe failed: {reason}")
+            return
+        if state == CLOSED:
+            self._score += weight
+            if self._score >= self._failure_threshold():
+                self._transition_locked(OPEN, reason)
+
+    def _dump_if_tripped(self, was: str):
+        """Black-box a closed/half-open -> open transition (flight
+        recorder). Called OUTSIDE the breaker lock: the dump re-enters
+        :meth:`snapshot`."""
+        with self._lock:
+            now = self._state
+        if now == OPEN and was != OPEN:
+            from ..observe.flight import FLIGHT
+
+            FLIGHT.dump("breaker-open")
+
+    def record_deadline_overrun(self):
+        """A dispatch blew its deadline and was abandoned: categorical
+        wedge evidence — trips a closed breaker immediately."""
+        with self._lock:
+            was = self._state
+            self.deadline_overruns += 1
+            self._failure_locked("dispatch deadline overrun",
+                                 self._failure_threshold())
+        self._dump_if_tripped(was)
+
+    def record_transient_failure(self):
+        """A dispatch failed permanently (bounded retry exhausted; the port
+        then fails the command): one point toward the closed-state
+        threshold."""
+        with self._lock:
+            was = self._state
+            self.transient_failures += 1
+            self._failure_locked("repeated transient dispatch failures", 1)
+        self._dump_if_tripped(was)
+
+    def record_canary_failure(self):
+        """The health monitor's canary dispatch failed or timed out."""
+        with self._lock:
+            was = self._state
+            self.canary_failures += 1
+            self._failure_locked("health canary failed",
+                                 self._failure_threshold())
+        self._dump_if_tripped(was)
+
+    # --------------------------------------------------- SDC quarantine
+
+    def record_sdc(self, detail: str = ""):
+        """The shadow audit (ops/sentinel.py) caught the device returning
+        a result the f64 host oracle refutes: silent data corruption.
+        Trips immediately from any state and arms the quarantine — the
+        cooldown alone can no longer re-admit the device (see the module
+        docstring's SDC section)."""
+        reason = "silent data corruption (audit divergence)"
+        if detail:
+            reason += f": {detail}"
+        with self._lock:
+            was = self._state
+            self.sdc_trips += 1
+            self._sdc_tripped = True
+            self._audit_probe_ok = 0
+            self._failure_locked(reason, self._failure_threshold())
+        self._dump_if_tripped(was)
+
+    def audit_required(self) -> bool:
+        """True while SDC-quarantined: every dispatch the router still
+        admits (a half-open re-admission probe) must be fully audited
+        inline — the sentinel consults this at its resolve tap."""
+        if not self.enabled():
+            return False
+        with self._lock:
+            return self._sdc_tripped
+
+    def sdc_quarantined(self) -> bool:
+        """Alias for router stamping (why=sdc-quarantine vs breaker-open)."""
+        return self.audit_required()
+
+    def record_audit_clean(self):
+        """One SDC re-admission probe came back byte-identical to the f64
+        oracle under a full inline audit (the only feedback that counts
+        toward lifting the quarantine). ``FGUMI_TPU_AUDIT_READMIT``
+        consecutive such verdicts close the breaker and clear the
+        quarantine; a divergence meanwhile re-trips via record_sdc."""
+        with self._lock:
+            if not self._sdc_tripped:
+                return
+            if self._advance_locked() != HALF_OPEN:
+                return
+            self._audit_probe_ok += 1
+            need = audit_readmit_probes()
+            if need and self._audit_probe_ok >= need:
+                self._sdc_tripped = False
+                self._transition_locked(
+                    CLOSED, f"{self._audit_probe_ok} fully-audited probes "
+                    "clean (sdc quarantine lifted)")
+
+    # ----------------------------------------------------------- snapshot
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            state = self._advance_locked()
+            out = {
+                "state": state,
+                "enabled": self.enabled(),
+                "deadline_overruns": self.deadline_overruns,
+                "transient_failures": self.transient_failures,
+                "canary_failures": self.canary_failures,
+                "successes": self.successes,
+                "trips": self._trips,
+                "transitions": [
+                    {"t": t, "from": a, "to": b, "reason": r}
+                    for t, a, b, r in self.transitions],
+            }
+            if self.sdc_trips or self._sdc_tripped:
+                out["sdc_trips"] = self.sdc_trips
+                out["sdc_quarantined"] = self._sdc_tripped
+                out["audit_probe_ok"] = self._audit_probe_ok
+            return out
+
+
+class HealthMonitor:
+    """Background canary loop for long-lived processes (the serve daemon).
+
+    Every ``period_s`` it runs a tiny device round trip under its own
+    short deadline (``fgumi_tpu_torch.ops.kernel.device_canary``, kernel
+    K7) and feeds the breaker — so a card that wedges *between* jobs is
+    detected before the next job pays for the discovery. The canary only
+    touches the card once CUDA is already initialised in this process: it
+    must never be the thing that first creates a context (and hangs a
+    thread the daemon is waiting on).
+    """
+
+    def __init__(self, breaker: "DeviceBreaker", period_s: float = 30.0,
+                 canary_timeout_s: float = 10.0, canary=None):
+        self.breaker = breaker
+        self.period_s = period_s
+        self.canary_timeout_s = canary_timeout_s
+        #: the round trip, ``canary(timeout_s) -> (ok, wall_s, error)``
+        #: (default: ``ops.kernel.device_canary``; injectable for tests)
+        self._canary = canary
+        self._stop = threading.Event()
+        self._thread = None
+        self.canaries = 0
+
+    def start(self):
+        if self._thread is not None and self._thread.is_alive():
+            return
+        self._stop.clear()
+        self._thread = threading.Thread(target=self._loop,
+                                        name="fgumi-health-monitor",
+                                        daemon=True)
+        self._thread.start()
+        log.info("health monitor: canary every %.0fs (timeout %.0fs)",
+                 self.period_s, self.canary_timeout_s)
+
+    def stop(self, timeout: float = 5.0):
+        self._stop.set()
+        t = self._thread
+        if t is not None:
+            t.join(timeout)
+
+    def _loop(self):
+        while not self._stop.wait(self.period_s):
+            try:
+                self._canary_once()
+            except Exception:  # noqa: BLE001 - monitor must survive
+                log.exception("health monitor: canary raised")
+
+    def _canary_once(self):
+        import sys
+
+        canary = self._canary
+        if canary is None:
+            kern = sys.modules.get("fgumi_tpu_torch.ops.kernel")
+            torch = sys.modules.get("torch")
+            if kern is None or torch is None \
+                    or not torch.cuda.is_initialized():
+                return  # nothing warm to check yet; never force a CUDA init
+            if kern.dispatches_in_flight() > 0:
+                # real dispatches are in flight: they are the health
+                # signal (their resolves feed the breaker), and a canary
+                # behind them would time out on queue wait alone —
+                # tripping the breaker on a busy-but-healthy card
+                return
+            canary = kern.device_canary
+        self.canaries += 1
+        ok, wall_s, err = canary(self.canary_timeout_s)
+        from ..observe.metrics import METRICS
+
+        METRICS.inc("device.canary." + ("ok" if ok else "failed"))
+        if ok:
+            self.breaker.record_success()
+        else:
+            log.warning("health canary failed in %.2fs: %s", wall_s, err)
+            self.breaker.record_canary_failure()
+
+
+def monitor_period_s() -> float:
+    """Configured health-monitor period (0 = disabled)."""
+    try:
+        return max(float(os.environ.get("FGUMI_TPU_HEALTH_PERIOD_S", "0")),
+                   0.0)
+    except ValueError:
+        return 0.0
+
+
+#: process-wide singleton: device weather is a per-process fact.
+BREAKER = DeviceBreaker()

@@ -22,6 +22,7 @@ nothing falls back. ``DUPLEX_COMBINE_LAUNCHES`` and
 """
 
 import ctypes
+import sys
 import threading
 
 import torch
@@ -151,7 +152,6 @@ def duplex_combine(tb: torch.Tensor, tq: torch.Tensor, obs: torch.Tensor,
     contiguous on one device. Returns (out_b (K, Lp) u8, out_q (K, Lp) u8,
     out_e (K, Lp) int32) as :func:`duplex_combine_plain` defines them: K5
     on CUDA, the plain version on the CPU."""
-    global DUPLEX_COMBINE_LAUNCHES
     dev = cuda_kernel.device_of("duplex_combine", tb, tq, obs, a_idx, b_idx,
                                 lens)
     J, Lp, K = _check_duplex_inputs(tb, tq, obs, a_idx, b_idx, lens)
@@ -176,8 +176,7 @@ def duplex_combine(tb: torch.Tensor, tq: torch.Tensor, obs: torch.Tensor,
             out_q.data_ptr(), out_e.data_ptr(), stream)
     if rc != 0:
         _raise_launch(lib, "duplex_combine", rc)
-    with cuda_kernel.COUNT_LOCK:
-        DUPLEX_COMBINE_LAUNCHES += 1
+    cuda_kernel.count_launch(sys.modules[__name__], "DUPLEX_COMBINE_LAUNCHES")
     return out_b, out_q, out_e
 
 
@@ -331,7 +330,6 @@ def codec_combine(ba, bb, qa, qb, da, db, ea, eb, out=None):
     CODEC_OUT)`` bytes on the same device; the results are then written
     into it and returned as its :func:`plane_views` (one fetch takes all
     six). Without it each result has its own tensor on CUDA too."""
-    global CODEC_COMBINE_LAUNCHES
     ins = (ba, bb, qa, qb, da, db, ea, eb)
     dev = cuda_kernel.device_of("codec_combine", *ins,
                                 *(() if out is None else (out,)))
@@ -371,6 +369,5 @@ def codec_combine(ba, bb, qa, qb, da, db, ea, eb, out=None):
             stream)
     if rc != 0:
         _raise_launch(lib, "codec_combine", rc)
-    with cuda_kernel.COUNT_LOCK:
-        CODEC_COMBINE_LAUNCHES += 1
+    cuda_kernel.count_launch(sys.modules[__name__], "CODEC_COMBINE_LAUNCHES")
     return res

@@ -6,7 +6,8 @@ compiled by ``nvcc`` for ``sm_90a`` into ``fgumi_tpu_torch/_build/`` at
 first use and loaded with ctypes; :func:`build` compiles them all, one
 ``nvcc`` per source, started together. ``csrc/umi_hamming.cu`` (K4) has its
 wrapper in ``ops/umi_hamming.py``, ``csrc/strand_combine.cu`` (the strand
-combines K5 and K6) theirs in ``ops/combine.py``. ``csrc/consensus_wire.cu``
+combines K5 and K6) theirs in ``ops/combine.py``, ``csrc/canary.cu`` (the
+device canary K7) its own in ``ops/canary.py``. ``csrc/consensus_wire.cu``
 holds three kernels, all one warp per consensus read on a persistent grid
 (their launch geometry: :func:`full_launch_geometry`,
 :func:`filter_launch_geometry`, :func:`resident_launch_geometry`):
@@ -38,6 +39,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import threading
 
 import numpy as np
@@ -53,8 +55,9 @@ FILTER_LAUNCHES = 0
 RESIDENT_LAUNCHES = 0
 #: launches of K1-p2 (bumped once per launch, nowhere else)
 PACKED2_LAUNCHES = 0
-#: guards the launch counters of every wrapper (launches may come from
-#: several threads: the stage runner's process stage and resolve workers)
+#: guards the launch counters of every wrapper (:func:`count_launch`;
+#: launches come from several threads: the stage runner's process stage and
+#: resolve workers, two daemon jobs)
 COUNT_LOCK = threading.Lock()
 #: entries of the filter's per-base error-rate table (one per i16 depth)
 EMIN_SIZE = 32768
@@ -63,7 +66,8 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 #: every CUDA source of the port, by library name
 SOURCES = {"consensus_wire": os.path.join(_CSRC, "consensus_wire.cu"),
            "umi_hamming": os.path.join(_CSRC, "umi_hamming.cu"),
-           "strand_combine": os.path.join(_CSRC, "strand_combine.cu")}
+           "strand_combine": os.path.join(_CSRC, "strand_combine.cu"),
+           "canary": os.path.join(_CSRC, "canary.cu")}
 _BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)),
                           "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -187,6 +191,23 @@ def _lib():
     return _LIB
 
 
+def count_launch(module, counter: str):
+    """Add one launch to ``module``'s counter ``counter`` (a module global
+    such as ``LAUNCHES``) and to the launch tally of the active telemetry
+    scope, if any. Every wrapper calls it once a launch, right after the
+    launch succeeded, and nowhere else. One lock guards every counter, so
+    the launches of concurrent commands (two jobs of the serve daemon) add
+    up; the scope's tally keeps each command's own count apart
+    (``cli._kernel_counters``)."""
+    from ..observe.scope import current_scope
+
+    scope = current_scope()
+    with COUNT_LOCK:
+        setattr(module, counter, getattr(module, counter) + 1)
+        if scope is not None:
+            scope.count_launch(f"{module.__name__}.{counter}")
+
+
 def device_of(kernel: str, *tensors) -> torch.device:
     """The one device of a wrapper's inputs: CPU (the plain version) or
     CUDA (the kernel); raises on mixed or other devices."""
@@ -260,7 +281,6 @@ def consensus_wire_full(wire: torch.Tensor, starts: torch.Tensor,
     (qs (J, L) u8, wp (J, L/4) u8, depth (J, L), errors (J, L)); depth and
     errors are u16 values in int16 storage (``.view(np.uint16)`` on host).
     """
-    global LAUNCHES
     dev = device_of("consensus_wire_full", wire, starts, dict_tab)
     N, L, J = _check_wire_inputs(wire, starts, dict_tab)
     if dev.type == "cpu":
@@ -285,8 +305,7 @@ def consensus_wire_full(wire: torch.Tensor, starts: torch.Tensor,
             depth.data_ptr(), errors.data_ptr(), stream)
     if rc != 0:
         _raise_launch(lib, "consensus_wire_full", rc)
-    with COUNT_LOCK:
-        LAUNCHES += 1
+    count_launch(sys.modules[__name__], "LAUNCHES")
     return qs, wp, depth, errors
 
 
@@ -302,7 +321,6 @@ def consensus_wire_packed2(codes_packed: torch.Tensor, quals: torch.Tensor,
     int32 ascending with starts[J] <= N; correct_tab and err_tab (94,)
     float32, the match contribution of qual q being ``correct_tab[min(q,
     93)] - err_tab[min(q, 93)]``. Returns K1's (qs, wp, depth, errors)."""
-    global PACKED2_LAUNCHES
     dev = device_of("consensus_wire_packed2", codes_packed, quals, starts,
                     correct_tab, err_tab)
     if quals.dim() != 2:
@@ -339,8 +357,7 @@ def consensus_wire_packed2(codes_packed: torch.Tensor, quals: torch.Tensor,
             depth.data_ptr(), errors.data_ptr(), stream)
     if rc != 0:
         _raise_launch(lib, "consensus_wire_packed2", rc)
-    with COUNT_LOCK:
-        PACKED2_LAUNCHES += 1
+    count_launch(sys.modules[__name__], "PACKED2_LAUNCHES")
     return qs, wp, depth, errors
 
 
@@ -355,7 +372,6 @@ def consensus_wire_resident(wire: torch.Tensor, starts: torch.Tensor,
     (tb (J, L) u8, tq (J, L) u8, obs (J, L, 4) int32): the thresholded
     bases/quals (depth < min_reads -> N/0, qual < min_qual -> N/MIN_PHRED)
     and the per-lane observation counts — see ops/wire.wire_resident."""
-    global RESIDENT_LAUNCHES
     dev = device_of("consensus_wire_resident", wire, starts, dict_tab)
     N, L, J = _check_wire_inputs(wire, starts, dict_tab)
     if dev.type == "cpu":
@@ -386,8 +402,7 @@ def consensus_wire_resident(wire: torch.Tensor, starts: torch.Tensor,
             stream)
     if rc != 0:
         _raise_launch(lib, "consensus_wire_resident", rc)
-    with COUNT_LOCK:
-        RESIDENT_LAUNCHES += 1
+    count_launch(sys.modules[__name__], "RESIDENT_LAUNCHES")
     return qs, wp, depth, errors, tb, tq, obs
 
 
@@ -407,7 +422,6 @@ def consensus_wire_filter(wire: torch.Tensor, starts: torch.Tensor,
     and ``per_base`` (records carry cd/ce). Returns (stats (J, 7) int32,
     fb, fq (J, L) u8, depth, errors (J, L) raw u16 in int16 storage, qs
     (J, L) u8, wp (J, L/4) u8) — see ops/wire.wire_filter."""
-    global FILTER_LAUNCHES
     dev = device_of("consensus_wire_filter", wire, starts, dict_tab, lens,
                     emin_tab)
     N, L, J = _check_wire_inputs(wire, starts, dict_tab)
@@ -443,8 +457,7 @@ def consensus_wire_filter(wire: torch.Tensor, starts: torch.Tensor,
             errors.data_ptr(), qs.data_ptr(), wp.data_ptr(), stream)
     if rc != 0:
         _raise_launch(lib, "consensus_wire_filter", rc)
-    with COUNT_LOCK:
-        FILTER_LAUNCHES += 1
+    count_launch(sys.modules[__name__], "FILTER_LAUNCHES")
     return stats, fb, fq, depth, errors, qs, wp
 
 

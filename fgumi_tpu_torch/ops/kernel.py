@@ -93,6 +93,11 @@ inside ``device.fetch``. Each resolved dispatch feeds the
 ``device.dispatch.{fetch_s,fetch_bytes,wall_s}`` histograms and the flight
 recorder's ring. :data:`DEVICE_STATS` resolves the active command's
 telemetry scope (``observe/scope.py``).
+
+Device weather: every :func:`device_retry_call` feeds the process's
+circuit breaker (``ops/breaker.py``): a clean call a success, a retry
+budget that ran out a transient failure. :func:`device_canary` is the
+serve daemon's health round trip through K7 (``ops/canary.py``).
 """
 
 import contextlib
@@ -100,6 +105,7 @@ import logging
 import os
 import threading
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -109,6 +115,7 @@ from ..observe.trace import NULL_SPAN, span
 from . import combine as C
 from . import cuda_kernel
 from . import wire as W
+from .breaker import BREAKER
 from .tables import QualityTables, delta94
 
 log = logging.getLogger("fgumi_tpu_torch")
@@ -120,6 +127,19 @@ _RESIDENTS_LOCK = threading.Lock()
 #: pinned staging buffers an upload slot holds (uploads of one slot that
 #: may be in flight at once before a dispatch waits for the oldest)
 STAGING_DEPTH = 4
+
+#: consensus dispatches of every command in this process that are launched
+#: and not yet fetched (a handle dropped unfetched, by a failed command,
+#: leaves with its last reference)
+_LIVE_DISPATCHES = weakref.WeakSet()
+_LIVE_LOCK = threading.Lock()
+
+
+def dispatches_in_flight() -> int:
+    """Consensus dispatches in flight in this process, across commands:
+    the health monitor skips its canary while real work is on the card."""
+    with _LIVE_LOCK:
+        return len(_LIVE_DISPATCHES)
 
 
 class ResidentHandles:
@@ -406,7 +426,9 @@ def device_retry_call(fn, what: str, launches: int = 1):
     a CUDA error becomes a :class:`DeviceFailure`). ``device.wedge`` fires
     once before the loop and ``device.dispatch`` on every attempt; each
     attempt is a ``device.dispatch`` span (``attempt=`` its index) unless
-    ``launches`` is 0."""
+    ``launches`` is 0. A clean call is a success of the device breaker
+    (:data:`~.breaker.BREAKER`), a retry budget that runs out a transient
+    failure of it; the breaker moves no work."""
     from ..utils import faults
 
     faults.fire("device.wedge")
@@ -415,14 +437,17 @@ def device_retry_call(fn, what: str, launches: int = 1):
         try:
             faults.fire("device.dispatch")
             with _dispatch_span(what, launches, attempt):
-                return fn()
+                out = fn()
         except BaseException as e:  # noqa: BLE001 - classified below
             if _is_cuda_error(e) and not _is_oom(e):
                 raise DeviceFailure(
                     f"device {what} dispatch failed on attempt "
                     f"{attempt + 1} of {retries + 1}: {type(e).__name__}: "
                     f"{_first_line(e)}") from e
-            if _is_oom(e) or not _is_transient(e) or attempt >= retries:
+            if _is_oom(e) or not _is_transient(e):
+                raise
+            if attempt >= retries:
+                BREAKER.record_transient_failure()
                 raise
             DEVICE_STATS.add_retry()
             log.warning("device %s failed (%s: %s); retry %d/%d in %.2fs",
@@ -430,6 +455,9 @@ def device_retry_call(fn, what: str, launches: int = 1):
                         delay)
             time.sleep(delay)
             delay = min(delay * 2, 2.0)
+            continue
+        BREAKER.record_success()
+        return out
 
 
 class Dispatch:
@@ -439,7 +467,8 @@ class Dispatch:
     device memory holds the error (``failure``, nothing in flight) and the
     K1-r thresholds it was launched with, for the split at resolve time."""
 
-    __slots__ = ("out", "what", "t0", "slot", "up", "failure", "thresholds")
+    __slots__ = ("out", "what", "t0", "slot", "up", "failure", "thresholds",
+                 "__weakref__")
 
     def __init__(self, out, what: str, t0: float, slot: int, up: int,
                  failure=None, thresholds=None):
@@ -593,8 +622,11 @@ class ConsensusKernel:
         """The handle of a ``what`` dispatch whose upload began at ``t0``
         (the host tensors ``host`` went up)."""
         up = sum(t.numel() * t.element_size() for t in host)
-        return Dispatch(out, what, t0, DEVICE_STATS.begin(self.device, up),
-                        up)
+        handle = Dispatch(out, what, t0, DEVICE_STATS.begin(self.device, up),
+                          up)
+        with _LIVE_LOCK:
+            _LIVE_DISPATCHES.add(handle)
+        return handle
 
     def _fetch(self, handle: Dispatch, tensors):
         """Fetch ``tensors`` of ``handle``'s dispatch to host numpy arrays
@@ -610,6 +642,8 @@ class ConsensusKernel:
             self.device_s += now - handle.t0
             self.batches += 1
         DEVICE_STATS.end(handle.slot, down, now - t_fetch)
+        with _LIVE_LOCK:
+            _LIVE_DISPATCHES.discard(handle)
         _observe_dispatch(now - handle.t0, now - t_fetch, handle.up, down)
         return host
 
@@ -1105,3 +1139,82 @@ def codec_combine_device(device, ba, bb, qa, qb, da, db, ea, eb):
         host = torch.empty(out.numel(), dtype=torch.uint8, pin_memory=True)
         host.copy_(out)
     return tuple(v.numpy() for v in C.plane_views(host, T, C.CODEC_OUT))
+
+
+# ------------------------------------------------------------------ canary
+
+#: the canary's payload: 1 MiB of zeros (the JAX package's ``_CANARY_BYTES``)
+CANARY_BYTES = 1 << 20
+_CANARY_POLL_S = 0.001
+
+
+class _Canary:
+    """One device's canary state: its own CUDA stream, the pinned zero
+    payload every round trip copies from (read-only, so reused), and the
+    round trips given up at their deadline, each kept alive (its event and
+    buffers) until its event completes."""
+
+    def __init__(self, device: torch.device):
+        self.stream = torch.cuda.Stream(device)
+        self.payload = torch.zeros(CANARY_BYTES,
+                                   dtype=torch.uint8).pin_memory()
+        self.abandoned = []
+
+    def reap(self):
+        self.abandoned = [a for a in self.abandoned if not a[0].query()]
+
+
+_CANARIES = {}
+_CANARY_LOCK = threading.Lock()
+
+
+def device_canary(timeout_s: float = 10.0):
+    """One tiny end-to-end round trip on the card under its own deadline.
+
+    Returns ``(ok, wall_s, error)``. On the canary's own stream: the zero
+    payload up from the reused pinned buffer, its sum through K7
+    (``ops/canary.canary_sum``), the 4-byte result down into pinned memory,
+    and an event recorded after them; the host polls the event until the
+    deadline and never blocks on the card. A round trip past the deadline
+    is abandoned (its buffers live until its event completes) and reported
+    as ``(False, wall, "deadline ...")``; a result other than 0 is
+    corruption. Used by the health monitor
+    (:class:`fgumi_tpu_torch.ops.breaker.HealthMonitor`); callers feed the
+    breaker from the result. The JAX package also feeds its router's link
+    estimate from a clean round trip; that waits for the router."""
+    from .canary import canary_sum
+
+    t0 = time.monotonic()
+    deadline = t0 + timeout_s
+    with _CANARY_LOCK:  # one canary at a time
+        try:
+            dev = torch.device("cuda", torch.cuda.current_device())
+            state = _CANARIES.get(dev.index)
+            if state is None:
+                state = _CANARIES[dev.index] = _Canary(dev)
+            state.reap()
+            with torch.cuda.device(dev), torch.cuda.stream(state.stream):
+                x = torch.empty(CANARY_BYTES, dtype=torch.uint8, device=dev)
+                x.copy_(state.payload, non_blocking=True)
+                total = canary_sum(x).reshape(1)
+                host = torch.empty(1, dtype=torch.int32, pin_memory=True)
+                host.copy_(total, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(state.stream)
+            while not done.query():
+                if time.monotonic() >= deadline:
+                    state.abandoned.append((done, (x, total, host)))
+                    return (False, time.monotonic() - t0,
+                            f"deadline {timeout_s:g}s exceeded; the "
+                            "canary round trip was abandoned")
+                time.sleep(_CANARY_POLL_S)
+        except BaseException as e:  # noqa: BLE001 - canary outcome
+            if not (_is_cuda_error(e) or _is_oom(e)):
+                raise
+            return (False, time.monotonic() - t0,
+                    f"{type(e).__name__}: {_first_line(e)}")
+    wall = time.monotonic() - t0
+    got = int(host[0])
+    if got != 0:  # the payload is zeros; anything else is corruption
+        return False, wall, f"canary sum mismatch: {got}"
+    return True, wall, None

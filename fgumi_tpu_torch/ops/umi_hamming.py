@@ -10,6 +10,7 @@ raises — nothing falls back.
 """
 
 import ctypes
+import sys
 import threading
 
 import torch
@@ -115,7 +116,6 @@ def umi_hamming(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(N, M) int16 Hamming distances between the rows of ``a`` (N, L) and
     ``b`` (M, L), both contiguous uint8 on one device: K4 on CUDA, the
     plain version on the CPU."""
-    global HAMMING_LAUNCHES
     dev = cuda_kernel.device_of("umi_hamming", a, b)
     n, m, L = _check_inputs(a, b)
     if dev.type == "cpu":
@@ -127,8 +127,7 @@ def umi_hamming(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         msg = lib.fgumi_umi_hamming_error_string(rc).decode()
         raise RuntimeError(f"umi_hamming launch failed: {msg} "
                            f"(cudaError {rc})")
-    with cuda_kernel.COUNT_LOCK:
-        HAMMING_LAUNCHES += 1
+    cuda_kernel.count_launch(sys.modules[__name__], "HAMMING_LAUNCHES")
     return out
 
 

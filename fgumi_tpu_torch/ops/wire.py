@@ -21,7 +21,7 @@ treatment the CUDA kernel applies. Those cells are recomputed by the f64
 oracle, so the resolved planes do not depend on it.
 """
 
-import threading
+import sys
 
 import numpy as np
 import torch
@@ -42,7 +42,6 @@ QUAL_INVALID = 127  # packed2-layout qual sentinel for N/pad
 #: calls of ``packed2_full`` on a CUDA device (the port's own route runs
 #: the hand kernel K1-p2 there, so a main-path run counts none)
 PACKED2_LAUNCHES = 0
-_COUNT_LOCK = threading.Lock()
 
 
 # ------------------------------------------------------------ host layouts
@@ -339,10 +338,10 @@ def packed2_full(codes_packed, quals, seg_ids, correct_tab, err_tab,
     """Full-column consensus over the packed2 layout (same outputs as
     ``wire_full``): the function the CUDA kernel ``consensus_wire_packed2``
     (K1-p2) computes."""
-    global PACKED2_LAUNCHES
     if codes_packed.is_cuda:
-        with _COUNT_LOCK:
-            PACKED2_LAUNCHES += 1
+        from . import cuda_kernel
+
+        cuda_kernel.count_launch(sys.modules[__name__], "PACKED2_LAUNCHES")
     terms = packed2_terms(codes_packed, quals, correct_tab, err_tab)
     return _full_outputs(
         _reduce_and_call(terms, seg_ids, ln_error_pre_umi, num_segments),

@@ -1,0 +1,584 @@
+"""The job-service daemon: socket server + warm-process job execution.
+
+One :class:`JobService` owns the listeners (the Unix socket, plus an
+optional TCP listener), the scheduler, and the registry. Each admitted job
+is executed by re-entering the ordinary CLI (``cli.main``) on a worker
+thread — the whole point of the daemon is that this re-entry is *warm*:
+torch is imported, the CUDA context exists, and every kernel library is
+built and loaded (:meth:`JobService.warm_up`), so repeated jobs skip
+straight to data movement.
+
+Per-job isolation rides on the context-scoped execution state: the CLI
+gives every top-level invocation its own telemetry scope (metrics,
+DeviceStats, tracer, kernel launch tallies), the atomic-output flag is a
+contextvar, and provenance (@PG CL) is overridden with the submitting
+client's command line — so a job's output is byte-identical to the same
+command run standalone, and two concurrent jobs cannot see each other's
+counters.
+
+Transport rides on :mod:`.transport`: the frame-serving loop, per-
+connection deadlines and the connection cap on TCP, and the shared-secret
+handshake required on non-loopback binds are all enforced there; this
+module only answers validated frames.
+
+Not ported: fleet operation (``--journal-dir`` leases and takeover), the
+cross-job dispatch coalescer and the routing-state snapshot. The daemon
+answers the balancer-only ``scatter`` op with the reference daemon's
+refusal.
+
+Lifecycle: ``drain`` (op) closes admission but keeps answering status;
+``shutdown`` (op) or SIGTERM/SIGINT additionally exits once queued and
+running jobs finish. The socket file is unlinked on exit; a stale socket
+from a crashed daemon is detected (connect fails) and replaced on start.
+"""
+
+import json
+import logging
+import os
+import threading
+import time
+
+from . import journal as journal_mod
+from . import protocol, transport
+from .jobs import TERMINAL, Job, JobRegistry
+from .scheduler import Scheduler
+from .transport import SocketBusy  # noqa: F401  (the reference's path)
+
+log = logging.getLogger("fgumi_tpu_torch")
+
+
+def _clean_traceparent(value):
+    """The traceparent to keep on a job record: the well-formed original,
+    or None. Malformed context is IGNORED, never a rejection — telemetry
+    garnish must not be able to fail a submission (protocol docstring)."""
+    from ..observe.trace import parse_traceparent
+
+    return value if parse_traceparent(value) is not None else None
+
+
+def _clean_hops(req: dict):
+    """Upstream hop timestamps from a submit frame, type-checked.
+
+    Non-numeric (or absent) values are dropped per the same
+    malformed-ignored contract as the traceparent. Returns None when no
+    usable timestamp survives, so untraced submits keep a None field."""
+    hops = {}
+    for wire, key in (("sent_unix", "client_sent_unix"),
+                      ("bal_recv_unix", "balancer_recv_unix"),
+                      ("bal_sent_unix", "balancer_sent_unix")):
+        v = req.get(wire)
+        if isinstance(v, (int, float)) and not isinstance(v, bool) \
+                and v > 0:
+            hops[key] = float(v)
+    return hops or None
+
+
+def _governor_pressure():
+    """The resource governor's admission verdict (None = admit).
+
+    Shedding is the serve analog of the pipeline's budget shrink: under a
+    soft watermark new jobs would only deepen the pressure, so they are
+    rejected with an explicit ``resource_pressure`` reason and a
+    ``retry_after_s`` hint while already-admitted jobs run to completion."""
+    from ..utils.governor import GOVERNOR
+
+    return GOVERNOR.admission_pressure()
+
+
+class JobService:
+    def __init__(self, socket_path: str, workers: int = 2,
+                 queue_limit: int = 8, report_dir: str = None,
+                 max_frame_bytes: int = protocol.MAX_FRAME_BYTES,
+                 keep_finished: int = 1000, journal_path: str = None,
+                 health_period_s: float = 0.0, max_per_client: int = 0,
+                 metrics_port: int = None, tcp=None, auth_token: str = None,
+                 conn_cap: int = transport.DEFAULT_CONN_CAP,
+                 io_timeout_s: float = transport.DEFAULT_IO_TIMEOUT_S):
+        self.socket_path = socket_path
+        self.max_frame_bytes = max_frame_bytes
+        self.report_dir = report_dir
+        self.registry = JobRegistry(keep_finished=keep_finished,
+                                    on_transition=self._on_transition)
+        self.scheduler = Scheduler(self._execute, self.registry,
+                                   workers=workers, queue_limit=queue_limit,
+                                   max_per_client=max_per_client)
+        self.started_unix = time.time()
+        self.journal_path = journal_path
+        self.journal = None
+        self.health_period_s = float(health_period_s or 0.0)
+        self._monitor = None
+        #: optional loopback HTTP listener (serve --metrics-port): /metrics
+        #: Prometheus scrape + /healthz, fed by the same snapshot builder
+        #: as the `stats` op (serve/introspect.py). None = disabled.
+        self.metrics_port = metrics_port
+        self._introspection = None
+        #: journal replay accounting for the `stats` op (recover() fills it)
+        self.journal_stats = {}
+        self._dedupe = {}          # dedupe key -> job id (journal-durable)
+        self._dedupe_lock = threading.Lock()
+        self._recovered = False
+        #: optional TCP listen address (host, port) beside the Unix socket
+        self.tcp = tuple(tcp) if tcp else None
+        self.auth_token = auth_token
+        self.conn_cap = conn_cap
+        self.io_timeout_s = io_timeout_s
+        self._unix = transport.UnixListener(socket_path) if socket_path \
+            else None
+        self._tcp_listener = None
+        self._frames = None
+        self._shutdown = threading.Event()
+        self._closed = False
+
+    def _on_transition(self, job):
+        if self.journal is not None:
+            self.journal.record_state(job)
+
+    # -- warm-up ------------------------------------------------------------
+
+    def warm_up(self):
+        """Pay the cold-start costs once, before the first job: import
+        torch, create the CUDA context, and build (at first use) and load
+        every kernel library of the port — the consensus kernels, K4, the
+        strand combines and the canary K7. Returns the seconds it took.
+        Raises on any failure (the CLI exits 2 with the line): a daemon
+        never serves cold behind a warning."""
+        t0 = time.monotonic()
+        import torch
+
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available (pass "
+                               "--no-warmup to serve jobs that run with "
+                               "--device cpu)")
+        torch.cuda.init()
+        from ..ops import canary, combine, cuda_kernel, umi_hamming
+
+        cuda_kernel.build()
+        cuda_kernel._lib()
+        umi_hamming._lib()
+        combine._lib()
+        canary._lib()
+        secs = time.monotonic() - t0
+        log.info("serve: warm-up done in %.2fs: CUDA on %s, kernel "
+                 "libraries %s loaded", secs, torch.cuda.get_device_name(),
+                 ", ".join(cuda_kernel.SOURCES))
+        return secs
+
+    # -- job execution ------------------------------------------------------
+
+    def _job_argv(self, job):
+        """The argv actually passed to cli.main: the job's command plus the
+        daemon-injected per-job artifact flags (which must precede the
+        subcommand; the job's own later flags win on conflict)."""
+        pre = []
+        if self.report_dir:
+            job.report_path = os.path.join(self.report_dir,
+                                           f"{job.id}.report.json")
+            pre += ["--run-report", job.report_path]
+            if job.trace:
+                job.trace_path = os.path.join(self.report_dir,
+                                              f"{job.id}.trace.json")
+                pre += ["--trace", job.trace_path]
+        return pre + job.argv
+
+    def _execute(self, job) -> int:
+        """Run one job in-process; never raises (outcome on the record)."""
+        from ..cli import main as cli_main
+        from ..observe.scope import command_argv, job_context
+        from ..observe.trace import parse_traceparent
+        from ..utils import faults
+
+        log.info("serve: job %s starting: %s", job.id, " ".join(job.argv))
+        t0 = time.monotonic()
+        parsed = parse_traceparent(job.traceparent)
+        hops = dict(job.hops or {})
+        # the daemon-side lifecycle timestamps complete the hop chain the
+        # client/balancer started: the job's run report can then attribute
+        # queue wait without a round trip back to the registry
+        hops["admitted_unix"] = job.submitted_unix
+        hops["started_unix"] = job.started_unix
+        try:
+            # chaos point: serve.dispatch:raise proves a failed job reports
+            # `failed` with a diagnostic while the daemon keeps serving
+            faults.fire("serve.dispatch")
+            # provenance override: outputs record the CLIENT's command line,
+            # making daemon runs byte-identical to standalone ones; the job
+            # context hands the propagated trace ids + hop timestamps into
+            # the telemetry scope cli.main builds for this job
+            with job_context(
+                    job_id=job.id,
+                    trace_id=parsed[0] if parsed else None,
+                    parent_span_id=parsed[1] if parsed else None,
+                    hops=hops), \
+                    command_argv([job.argv0] + job.argv):
+                rc = cli_main(self._job_argv(job))
+        except BaseException as e:  # noqa: BLE001 - job outcome, not crash
+            self.registry.mark_failed(job, f"{type(e).__name__}: {e}")
+            log.warning("serve: job %s failed after %.2fs: %s", job.id,
+                        time.monotonic() - t0, job.error)
+            return 1
+        self.registry.mark_done(job, rc)
+        log.info("serve: job %s %s (rc=%d) in %.2fs", job.id, job.state,
+                 rc, time.monotonic() - t0)
+        return rc
+
+    # -- crash recovery -----------------------------------------------------
+
+    def recover(self):
+        """Replay the journal (if configured) and requeue incomplete jobs.
+
+        Idempotent; runs once, before the worker pool starts so a
+        requeued job cannot race a fresh submission for its original
+        position. Terminal jobs are restored read-only (clients polling
+        an id from before the crash get its final record), dedupe keys
+        are rebuilt, and non-terminal jobs — queued or running when the
+        previous daemon died — are requeued in original submission order.
+        That re-run is byte-identical to a single run: the atomic output
+        commit (``utils/atomic``) guarantees the killed attempt published
+        nothing. Also sweeps report-dir temp leftovers owned by dead pids
+        and older than the journal's last entry."""
+        if self._recovered:
+            return
+        self._recovered = True
+        if not self.journal_path:
+            return
+        from ..observe.metrics import METRICS
+
+        rep = journal_mod.replay(self.journal_path)
+        self.journal = journal_mod.JobJournal(self.journal_path)
+        self._sweep_report_temps(rep.last_entry_unix)
+        requeued = 0
+        for rec in rep.jobs:
+            requeued += self._restore_record(rec)
+        if rep.records or requeued:
+            log.info("serve: journal replayed %d record(s); %d job(s) "
+                     "requeued", rep.records, requeued)
+        METRICS.inc("serve.journal.replayed", rep.records)
+        METRICS.inc("serve.journal.requeued", requeued)
+        if rep.truncated_bytes:
+            METRICS.inc("serve.journal.truncated_bytes", rep.truncated_bytes)
+        self.journal_stats = {"replayed": rep.records, "requeued": requeued,
+                              "truncated_bytes": rep.truncated_bytes}
+
+    def _restore_record(self, rec: dict) -> int:
+        """Restore one replayed journal record into the live registry.
+        Returns 1 when a job was requeued for execution."""
+        job = Job(rec["id"], rec["argv"], rec["priority"],
+                  argv0=rec["argv0"], tag=rec["tag"],
+                  trace=rec["trace"], client=rec.get("client"),
+                  traceparent=_clean_traceparent(rec.get("traceparent")),
+                  hops=rec.get("hops") if isinstance(rec.get("hops"), dict)
+                  else None,
+                  shard=rec.get("shard")
+                  if isinstance(rec.get("shard"), dict) else None)
+        if rec.get("submitted_unix"):
+            job.submitted_unix = rec["submitted_unix"]
+        terminal = rec["state"] in TERMINAL
+        if terminal:
+            job.state = rec["state"]
+            job.exit_status = rec["exit_status"]
+            job.error = rec["error"]
+            job.finished_unix = rec.get("finished_unix")
+        dedupe = rec.get("dedupe")
+        if dedupe and rec["state"] != "cancelled":
+            # cancelled jobs never rebind their key: an admission-rejected
+            # submit releases its key on the live daemon (see the submit
+            # handler), and the journal records it only as
+            # submit+cancelled — rebinding here would answer a
+            # post-restart retry with the rejected record instead of
+            # executing it. Later records rebind last-wins: the live
+            # handler legitimately reissues a stale key whose first job
+            # was evicted from history, and both submits are in the
+            # journal (replay runs before the listeners serve)
+            with self._dedupe_lock:
+                self._dedupe[dedupe] = job.id
+        try:
+            self.registry.restore(job)
+        except ValueError:
+            return 0  # duplicate record; first wins
+        if terminal:
+            return 0
+        if self.journal is not None:
+            self.journal.record_requeued(job.id)
+        admitted, reason = self.scheduler.submit(job)
+        if admitted:
+            return 1
+        # shrunken capacity on restart: record the loss
+        self.registry.mark_cancelled(job)
+        with self._dedupe_lock:
+            if dedupe and self._dedupe.get(dedupe) == job.id:
+                # same contract as a live admission reject: the
+                # key is released so a retry executes instead of
+                # being answered with the cancelled record
+                del self._dedupe[dedupe]
+        log.warning("serve: could not requeue %s: %s", job.id, reason)
+        return 0
+
+    def _sweep_report_temps(self, before_unix):
+        """Remove dead-pid atomic-output temps from the report dir.
+
+        A SIGKILL'd predecessor can leave ``.<name>.tmp.<pid>.<seq>``
+        leftovers next to per-job reports; anything owned by a dead pid
+        and not newer than the journal's last entry (i.e. provably from
+        before the crash) is swept. Live pids — including this process —
+        are never touched."""
+        if not self.report_dir or not os.path.isdir(self.report_dir):
+            return
+        from ..utils.atomic import _pid_alive
+
+        swept = 0
+        for name in os.listdir(self.report_dir):
+            if not name.startswith(".") or ".tmp." not in name:
+                continue
+            pid_s = name.split(".tmp.", 1)[1].split(".", 1)[0]
+            if not pid_s.isdigit():
+                continue
+            pid = int(pid_s)
+            if pid == os.getpid() or _pid_alive(pid):
+                continue
+            path = os.path.join(self.report_dir, name)
+            try:
+                if before_unix is not None \
+                        and os.stat(path).st_mtime > before_unix:
+                    continue  # newer than the crash horizon; leave it
+                os.unlink(path)
+                swept += 1
+            except OSError:
+                pass
+        if swept:
+            log.info("serve: swept %d stale report temp(s)", swept)
+
+    # -- socket server ------------------------------------------------------
+
+    def _build_frames(self):
+        listeners = []
+        if self._unix is not None:
+            listeners.append(self._unix)
+        if self.tcp is not None and self._tcp_listener is None:
+            host, port = self.tcp
+            self._tcp_listener = transport.TcpListener(
+                host, port, token=self.auth_token,
+                io_timeout_s=self.io_timeout_s, conn_cap=self.conn_cap)
+        if self._tcp_listener is not None:
+            listeners.append(self._tcp_listener)
+        if not listeners:
+            raise ValueError("serve needs a --socket or a --tcp listener")
+        return transport.FrameServer(
+            self.handle_request, listeners, self.max_frame_bytes,
+            on_shutdown=self._shutdown.set, name="fgumi-serve")
+
+    def bind(self):
+        """Claim every listener AND the metrics port WITHOUT starting to
+        serve. Raises SocketBusy / OSError.
+
+        Split from :meth:`start` so the CLI can fail fast on a busy
+        socket, TCP port, or metrics port *before* paying (and
+        disturbing) the single-tenant device warm-up."""
+        if self._frames is None:
+            self._frames = self._build_frames()
+        self._frames.bind()  # busy unix socket / EADDRINUSE surface here
+        if self.metrics_port is not None and self._introspection is None:
+            from .introspect import IntrospectionServer
+
+            self._introspection = IntrospectionServer(self,
+                                                      self.metrics_port)
+            self._introspection.bind()  # EADDRINUSE surfaces here
+
+    @property
+    def tcp_port(self):
+        """The bound TCP port (after bind; port 0 = ephemeral resolves)."""
+        return self._tcp_listener.port if self._tcp_listener else None
+
+    def start_transport(self):
+        """Bind and serve frames WITHOUT recovery, workers, or monitors —
+        the protocol-surface harness the wire tests drive."""
+        self.bind()
+        self._frames.start()
+
+    def start(self):
+        """Bind (if not already), recover, start workers and the accept
+        loops. Recovery runs before the pool so requeued jobs hold their
+        original queue positions ahead of any fresh submission."""
+        self.bind()
+        self.recover()
+        self.scheduler.start()
+        if self.health_period_s > 0:
+            from ..ops.breaker import BREAKER, HealthMonitor
+
+            self._monitor = HealthMonitor(BREAKER,
+                                          period_s=self.health_period_s)
+            self._monitor.start()
+        if self._introspection is not None:
+            self._introspection.start()
+        self._frames.start()
+        log.info("serve: listening on %s (%d workers, queue limit %d%s)",
+                 " + ".join(lst.describe()
+                            for lst in self._frames.listeners),
+                 self.scheduler.workers, self.scheduler.queue_limit,
+                 f", journal {self.journal_path}" if self.journal_path
+                 else "")
+
+    # -- request dispatch (transport-independent; tests call it directly) ---
+
+    def handle_request(self, req: dict) -> dict:
+        err = protocol.validate_request(req)
+        if err is not None:
+            return protocol.error_response(err)
+        op = req["op"]
+        if op == "hello":
+            # the transport layer enforces WHEN a hello is required (first
+            # frame on an auth-required listener); this answers WHETHER
+            # the offered token matches
+            return transport.hello_response("fgumi-tpu-torch",
+                                            self.auth_token, req)
+        if op == "ping":
+            extra = {}
+            if self.scheduler.max_per_client:
+                # quota surface only when the knob is armed, so the default
+                # ping (and its golden fixture) is unchanged
+                extra["max_per_client"] = self.scheduler.max_per_client
+                extra["quota"] = self.scheduler.client_quota_state()
+            return protocol.ok_response(
+                tool="fgumi-tpu-torch", pid=os.getpid(),
+                uptime_s=round(time.time() - self.started_unix, 1),
+                jobs=self.registry.counts(), **self.scheduler.depth(),
+                **extra)
+        if op == "stats":
+            # live introspection: scheduler/quota/journal/breaker/governor/
+            # device/monitor snapshots + latency histogram summaries — the
+            # same builder feeds /metrics, so the two surfaces cannot
+            # disagree
+            from .introspect import service_stats
+
+            return protocol.ok_response(stats=service_stats(self))
+        if op == "scatter":
+            # balancer-only op: daemons EXECUTE shard sub-jobs, they never
+            # plan or gather them — an explicit refusal here (vs the
+            # version-skew "unknown op") tells the operator they pointed a
+            # scatter client at a daemon instead of a balance front end
+            return protocol.error_response(
+                "op 'scatter' is balancer-only: this is a daemon, not a "
+                "balance front end — submit whales through `fgumi-tpu "
+                "balance --scatter N` (docs/serving.md)")
+        if op == "submit":
+            dedupe = req.get("dedupe")
+            with self._dedupe_lock:
+                if dedupe:
+                    existing = self._dedupe.get(dedupe)
+                    if existing is not None:
+                        prior = self.registry.get(existing)
+                        if prior is not None:
+                            # idempotent resubmit: same key -> the SAME
+                            # job (running, queued, or finished), never a
+                            # second execution — the contract that makes
+                            # client retry-after-reconnect safe
+                            return protocol.ok_response(
+                                job=prior.to_wire(), deduped=True)
+                        # job evicted from history: key is stale, reissue
+                # resource shed: under a memory/disk pressure watermark the
+                # daemon stops taking on NEW work (running jobs finish) —
+                # an explicit reason plus a Retry-After-style hint, checked
+                # after dedupe so idempotent resubmits of existing jobs
+                # still answer (they cost nothing)
+                shed = _governor_pressure()
+                if shed is not None:
+                    # the governor counts the shed; fold_metrics publishes
+                    # it as serve.shed.resource at serve-command exit
+                    return protocol.error_response(
+                        f"resource_pressure: {shed['reason']}",
+                        retry_after_s=shed["retry_after_s"])
+                job = self.registry.create(
+                    req["argv"],
+                    req.get("priority", protocol.DEFAULT_PRIORITY),
+                    argv0=req.get("argv0"), tag=req.get("tag"),
+                    trace=bool(req.get("trace")),
+                    client=req.get("client"),
+                    traceparent=_clean_traceparent(req.get("traceparent")),
+                    hops=_clean_hops(req),
+                    shard=req.get("shard")
+                    if isinstance(req.get("shard"), dict) else None)
+                if dedupe:
+                    self._dedupe[dedupe] = job.id
+            # journal BEFORE admission: a crash between the two requeues a
+            # job the client believes submitted — the safe direction (the
+            # reverse silently loses it); a rejection is journaled as the
+            # cancelled transition right below
+            if self.journal is not None:
+                self.journal.record_submit(job, dedupe)
+            admitted, reason = self.scheduler.submit(job)
+            if not admitted:
+                # the response still carries the (cancelled) record so the
+                # client sees what was refused, but the registry forgets it:
+                # a rejection storm must not evict finished-job history —
+                # and the dedupe key is released so a later retry of the
+                # same request is not answered with the rejected record
+                self.registry.mark_cancelled(job)
+                self.registry.discard(job.id)
+                if dedupe:
+                    with self._dedupe_lock:
+                        if self._dedupe.get(dedupe) == job.id:
+                            del self._dedupe[dedupe]
+                return protocol.error_response(reason, job=job.to_wire())
+            return protocol.ok_response(job=job.to_wire())
+        if op == "status":
+            job_id = req.get("id")
+            if job_id is None:
+                return protocol.ok_response(
+                    jobs=[j.to_wire() for j in self.registry.list()],
+                    **self.scheduler.depth())
+            job = self.registry.get(job_id)
+            if job is None:
+                return protocol.error_response(f"unknown job {job_id}")
+            return protocol.ok_response(job=job.to_wire())
+        if op == "cancel":
+            ok, reason = self.scheduler.cancel(req["id"])
+            if not ok:
+                return protocol.error_response(reason)
+            job = self.registry.get(req["id"])
+            return protocol.ok_response(job=job.to_wire())
+        if op == "drain":
+            self.scheduler.drain()
+            return protocol.ok_response(**self.scheduler.depth())
+        if op == "shutdown":
+            # drain here; the transport layer arms the exit event after the
+            # response is sent (direct handle_request callers — tests, an
+            # embedding app — follow with request_shutdown themselves)
+            self.scheduler.drain()
+            return protocol.ok_response(**self.scheduler.depth())
+        raise AssertionError(f"unhandled op {op}")  # validate() covers this
+
+    # -- lifecycle ----------------------------------------------------------
+
+    def request_shutdown(self):
+        """Graceful exit: flag shutdown. Genuinely signal-handler safe —
+        sets one event, no locks, no logging; the waiting main loop does
+        the drain (and its logging) outside signal context."""
+        self._shutdown.set()
+
+    def wait_until_shutdown(self, poll_s: float = 0.2):
+        """Block until a shutdown is requested AND the pool is quiescent.
+        Closes admission (idempotent drain) once the flag is seen. Every
+        job fetches its device results before it ends, so the finished
+        pool leaves nothing of its own queued on the card."""
+        while not self._shutdown.wait(poll_s):
+            pass
+        self.scheduler.drain()
+        self.scheduler.join()
+
+    def close(self):
+        """Tear the listeners down and remove the socket file (idempotent)."""
+        if self._closed:
+            return
+        self._closed = True
+        self._shutdown.set()
+        if self._monitor is not None:
+            self._monitor.stop()
+        if self._introspection is not None:
+            self._introspection.stop()
+        if self.journal is not None:
+            self.journal.close()
+        if self._frames is not None:
+            self._frames.close()
+        if self._unix is not None:
+            self._unix.unlink()
+        log.info("serve: stopped (%s)",
+                 json.dumps(self.registry.counts(), sort_keys=True))

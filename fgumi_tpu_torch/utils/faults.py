@@ -30,11 +30,12 @@ Arm via the environment::
 The port fires the host points and the device points ``device.dispatch``
 (every attempt of a dispatch: the bounded retry, and with kind ``oom`` the
 batch split, of ``ops/kernel.py``) and ``device.wedge`` (once a dispatch,
-before its retry loop). ``device.fetch`` feeds the JAX package's result
-sentinel and ``serve.dispatch``/``serve.coalesce`` its job service, which
-the port does not have yet: :func:`unported_spec` names them, and the CLI
-refuses such a spec (exit 2, "not yet ported") before any output is
-opened.
+before its retry loop), and the serve daemon's ``serve.dispatch`` (once a
+job, before it runs: a raise fails that job, and the daemon serves on).
+``device.fetch`` feeds the JAX package's result sentinel and
+``serve.coalesce`` its cross-job coalescer, which the port does not have
+yet: :func:`unported_spec` names them, and the CLI refuses such a spec
+(exit 2, "not yet ported") before any output is opened.
 
 Faults are re-parsed whenever the variable's value changes, so tests can
 arm and disarm between in-process runs.
@@ -59,7 +60,7 @@ FAULT_POINTS = frozenset({
     "device.fetch",        # fetched device results (not fired yet)
     "writer.compress",     # BGZF writer write/flush (io/bgzf.py)
     "native.batch",        # native batch-op entry (native/batch.py)
-    "serve.dispatch",      # job-service worker dispatch (not fired yet)
+    "serve.dispatch",      # job-service worker dispatch (serve/daemon.py)
     "serve.coalesce",      # merged cross-job dispatch (not fired yet)
     "chain.handoff",       # fused-pipeline channel put (pipeline_chain.py)
     "sort.spill",          # external-sort spill-run write (sort/external.py)
@@ -68,10 +69,9 @@ FAULT_POINTS = frozenset({
 })
 
 #: Points a spec may name in the JAX package whose machinery the port
-#: lacks (the result sentinel, the job service): the CLI refuses them as
-#: not yet ported
-UNPORTED_POINTS = frozenset({"device.fetch", "serve.dispatch",
-                             "serve.coalesce"})
+#: lacks (the result sentinel, the cross-job coalescer): the CLI refuses
+#: them as not yet ported
+UNPORTED_POINTS = frozenset({"device.fetch", "serve.coalesce"})
 
 KINDS = frozenset({"raise", "hang", "corrupt-bytes", "corrupt-result",
                    "oom", "enospc"})

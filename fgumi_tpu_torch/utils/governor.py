@@ -385,6 +385,8 @@ class ResourceGovernor:
         self.disk_free_min = None
         self.samples = 0
         self.rebalances = 0
+        #: serve submissions shed under pressure (:meth:`admission_pressure`)
+        self.shed_count = 0
         self._events = []
         # injectable samplers (tests): () -> bytes | None, path -> bytes
         self._rss_fn = _read_rss
@@ -478,6 +480,19 @@ class ResourceGovernor:
 
     def soft_pressure(self) -> bool:
         return self.state != "ok"
+
+    def admission_pressure(self):
+        """None when admission is fine; else a shed record
+        ``{"reason", "retry_after_s"}`` for the serve daemon (the
+        ``resource_pressure`` rejection + Retry-After-style hint)."""
+        if self.state == "ok":
+            return None
+        with self._lock:
+            self.shed_count += 1
+            reason = (self.hard_reason if self.state == "hard"
+                      else self._soft_reason) or "resource pressure"
+        return {"reason": reason,
+                "retry_after_s": 30.0 if self.state == "hard" else 5.0}
 
     def _sample_pressure(self):
         rss = self._rss_fn()
@@ -609,7 +624,7 @@ class ResourceGovernor:
         """Anything beyond a quiet run: an event, a rebalance, pressure."""
         with self._lock:
             return bool(self._events or self.rebalances
-                        or self.state != "ok")
+                        or self.shed_count or self.state != "ok")
 
     def fold_metrics(self):
         """Fold the governor's state into ``METRICS`` (called at command
@@ -626,6 +641,8 @@ class ResourceGovernor:
             if self.disk_free_min is not None:
                 METRICS.set("resource.disk_free_min_bytes",
                             self.disk_free_min)
+            if self.shed_count:
+                METRICS.set("serve.shed.resource", self.shed_count)
             kinds = {}
             for ev in self._events:
                 kinds[ev["kind"]] = kinds.get(ev["kind"], 0) + 1
@@ -648,6 +665,7 @@ class ResourceGovernor:
                 "state": self.state,
                 "samples": self.samples,
                 "rebalances": self.rebalances,
+                "shed": self.shed_count,
                 "rss_peak_bytes": self.rss_peak,
                 "events": list(self._events),
                 "budgets": {e.budget.name: e.budget.snapshot()
@@ -671,6 +689,7 @@ class ResourceGovernor:
             self.disk_free_min = None
             self.samples = 0
             self.rebalances = 0
+            self.shed_count = 0
             self._events = []
             self._rss_fn = _read_rss
             self._disk_fn = _disk_free

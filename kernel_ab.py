@@ -10,6 +10,7 @@ parent commit's: ``git show <commit>:fgumi_tpu_torch/csrc/consensus_wire.cu
     python3 kernel_ab.py --base _base/consensus_wire.cu [--sass-out DIR]
     python3 kernel_ab.py --base _base/umi_hamming.cu
     python3 kernel_ab.py --base _base/strand_combine.cu
+    python3 kernel_ab.py --base _base/canary.cu
 
 For ``consensus_wire.cu`` (K1, K1-f, K1-r and K1-p2; K1-r and K1-p2 only
 where both builds have them):
@@ -79,6 +80,14 @@ each read by one output row, lengths 92-100), K6 over ``codec_320k``'s
 2,678,850 positions; requires
 every output bit-identical between the builds, and times both in turns as
 above (each kernel's own device time) beside the byte bound.
+
+For ``canary.cu`` (K7, the device canary's int32 sum): builds both sources
+as above, binds each build's exports with ``ops/canary.bind`` and calls it
+through the port's wrapper (``canary.canary_sum``, the module's ``_LIB``
+swapped) on the health monitor's 1 MiB payload (zeros and seeded random
+bytes) and on 1 MiB + 13 bytes (the tail path); requires equal sums, and
+times both in turns beside the byte bound (a launch's latency sets K7's
+time at this size).
 """
 
 import argparse
@@ -309,6 +318,42 @@ def combine_ab(libs, dev, summary):
             kind: [t["device_ms"] for t in ts] for kind, ts in times.items()}
 
 
+def canary_ab(libs, dev, summary):
+    """K7 of both builds on the canary's payloads: equal sums, timed in
+    turns."""
+    import torch
+
+    from fgumi_tpu_torch.ops import canary
+
+    rng = np.random.default_rng(7)
+    n = 1 << 20
+    cases = {"zeros_1MiB": torch.zeros(n, dtype=torch.uint8, device=dev),
+             "random_1MiB": torch.from_numpy(rng.integers(
+                 0, 256, n, dtype=np.uint8)).to(dev),
+             "random_1MiB_tail": torch.from_numpy(rng.integers(
+                 0, 256, n + 13, dtype=np.uint8)).to(dev)}
+    for key, x in cases.items():
+        runs = {k: on(lib, lambda x=x: canary.canary_sum(x), canary)
+                for k, lib in libs.items()}
+        a, b = int(runs["base"]()), int(runs["new"]())
+        S.check(a == b == int(x.to(torch.int64).sum()),
+                f"K7 {key}: sums {a} (base) and {b} (new)")
+        print(f"K7 {key}: sums equal between base and new", flush=True)
+        times = {"base": [], "new": []}
+        for _ in range(TURNS):
+            for kind in ("base", "new", "new", "base"):
+                ms, seen = S.device_ms(runs[kind],
+                                       kernel="canary_sum_kernel")
+                times[kind].append({"device_ms": ms, "profiled": seen,
+                                    "loop_ms": S.loop_ms(runs[kind])})
+        print("ab " + json.dumps({
+            "shape": key, "kernel": "K7",
+            "bound_ms": (x.numel() + 4) / S.HBM_BYTES_PER_S * 1e3,
+            **times}), flush=True)
+        summary["times"][f"K7 {key}"] = {
+            kind: [t["device_ms"] for t in ts] for kind, ts in times.items()}
+
+
 CODEC_STATS = ("wall_s", "combine_s", "device_s", "host_s")
 _BUILD_ALL = ("from fgumi_tpu_torch import native; "
               "from fgumi_tpu_torch.ops import cuda_kernel; "
@@ -449,8 +494,9 @@ def sm_clock_mhz() -> float:
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--base", required=True,
-                    help="the other consensus_wire.cu, umi_hamming.cu or "
-                         "strand_combine.cu to build and compare")
+                    help="the other consensus_wire.cu, umi_hamming.cu, "
+                         "strand_combine.cu or canary.cu to build and "
+                         "compare")
     ap.add_argument("--sass-out", metavar="DIR",
                     help="write each build's cuobjdump -sass listing here")
     ap.add_argument("--codec-tree", metavar="DIR",
@@ -469,7 +515,7 @@ def main():
     print(smi, flush=True)
     dev = torch.device("cuda", 0)
     base_name = os.path.basename(args.base)
-    name = next((n for n in ("umi_hamming", "strand_combine")
+    name = next((n for n in ("umi_hamming", "strand_combine", "canary")
                  if base_name.startswith(n)), "consensus_wire")
     hamming = name == "umi_hamming"
     srcs = {"base": args.base, "new": cuda_kernel.SOURCES[name]}
@@ -487,6 +533,13 @@ def main():
         if hamming:
             k4_ab({k: bind_hamming(p) for k, p in paths.items()}, dev,
                   summary)
+            print(json.dumps(summary), flush=True)
+            return
+        if name == "canary":
+            from fgumi_tpu_torch.ops import canary
+
+            canary_ab({k: canary.bind(ctypes.CDLL(p))
+                       for k, p in paths.items()}, dev, summary)
             print(json.dumps(summary), flush=True)
             return
         if name == "strand_combine":

@@ -1271,3 +1271,66 @@ def test_mapped_front_half_entry_points_on_cuda(cuda_dev, tmp_path):
              "adjacency", "--device", "cuda")
     stats = _cuda_vs_cpu(tmp_path, ["--min-reads", "1"])
     assert stats["launches"]["consensus_wire_full"] >= 1
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 4095, 1 << 20, (1 << 20) + 13,
+                               8_421_504])
+def test_canary_kernel_matches_plain(cuda_dev, n):
+    """K7 against its plain version on the card, exactly: zeros, all-255
+    and seeded random bytes (the 16-byte words, the tail bytes of block 0,
+    the largest input whose sum fits int32)."""
+    from fgumi_tpu_torch.ops import canary
+
+    rng = np.random.default_rng(n)
+    for x in (torch.zeros(n, dtype=torch.uint8),
+              torch.full((n,), 255, dtype=torch.uint8),
+              torch.from_numpy(rng.integers(0, 256, n, dtype=np.uint8))):
+        xd = x.to(cuda_dev)
+        launches = canary.CANARY_LAUNCHES
+        got = canary.canary_sum(xd)
+        torch.cuda.synchronize()
+        assert canary.CANARY_LAUNCHES == launches + 1
+        assert got.dtype == torch.int32 and got.shape == ()
+        assert int(got) == int(canary.canary_sum_plain(xd)) \
+            == int(x.to(torch.int64).sum())
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        canary.canary_sum(torch.zeros(64, dtype=torch.uint8,
+                                      device=cuda_dev)[1:33])
+
+
+def test_serve_canary_on_cuda(cuda_dev, tmp_path):
+    """The health round trip on the card (K7 on its own stream, polled
+    under its deadline), and a daemon whose monitor runs it: canaries
+    succeed, K7 launches, the breaker stays closed."""
+    import shutil
+    import tempfile
+    import time
+
+    from fgumi_tpu_torch.ops import breaker, canary
+    from fgumi_tpu_torch.ops.kernel import device_canary
+    from fgumi_tpu_torch.serve.client import ServeClient
+    from fgumi_tpu_torch.serve.daemon import JobService
+
+    ok, wall, err = device_canary(10.0)
+    assert ok and err is None and wall < 10.0
+    breaker.BREAKER.reset()
+    d = tempfile.mkdtemp(prefix="ftc")
+    svc = JobService(os.path.join(d, "c.sock"), workers=1,
+                     health_period_s=0.2)
+    try:
+        assert svc.warm_up() > 0
+        svc.start()
+        client = ServeClient(svc.socket_path, timeout=10)
+        deadline = time.monotonic() + 30
+        while client.stats()["monitor"]["canaries"] < 3 \
+                and time.monotonic() < deadline:
+            time.sleep(0.1)
+        stats = client.stats()
+        assert stats["monitor"]["canaries"] >= 3
+        assert stats["monitor"]["canary_launches"] >= 3
+        assert stats["breaker"]["state"] == "closed"
+        assert canary.CANARY_LAUNCHES >= 4
+    finally:
+        svc.close()
+        shutil.rmtree(d, ignore_errors=True)
+        breaker.BREAKER.reset()

@@ -10,8 +10,10 @@ contract of the port's global options, held against the JAX package.
   injected raise, 4 from ``enospc`` at a sort spill, 5 from corrupt bytes
   under ``--audit-output``; a retried ``device.dispatch`` raise and a
   ``device.wedge`` hang exit 0 with the JAX CLI's records, kind ``oom`` at
-  a host point exits 3 on both; ``device.fetch`` and the ``serve.*`` points
-  exit 2 on the port ("not yet ported") before any output is opened.
+  a host point exits 3 on both; ``device.fetch`` and ``serve.coalesce``
+  exit 2 on the port ("not yet ported") before any output is opened
+  (``serve.dispatch`` fires in the port's serve daemon:
+  ``tests/test_torch_serve_daemon.py``).
 - Every global option of the reference is accepted; ``--profile``,
   ``--mesh``, ``--xla-profile`` and ``--shape-buckets`` exit 2 with one
   line, never argparse's usage error.
@@ -146,7 +148,7 @@ def test_bad_spec_is_loud(monkeypatch, spec, err):
     ("pipeline.process:raise:1.0,device.fetch:corrupt-result:1.0:1",
      "device.fetch:corrupt-result"),
     ("reader.decompress:oom:1.0", None),
-    ("serve.dispatch:raise:1.0", "serve.dispatch:raise"),
+    ("serve.dispatch:raise:1.0", None),
     ("device.wedge:hang:1.0:1,serve.coalesce:raise:1.0",
      "serve.coalesce:raise"),
     ("sort.spill:enospc:1.0:1", None),
@@ -309,7 +311,7 @@ def test_ported_fault_matches_jax(tmp_path, monkeypatch, inputs, spec, rc):
 
 
 @pytest.mark.parametrize("spec", [
-    "device.fetch:corrupt-result:1.0:1", "serve.dispatch:raise:1.0:1",
+    "device.fetch:corrupt-result:1.0:1", "serve.coalesce:raise:1.0:1",
     "serve.coalesce:hang:1.0:1"])
 def test_unported_fault_refused_before_output(tmp_path, monkeypatch, caplog,
                                               inputs, spec):
