@@ -17,7 +17,10 @@ two inputs, ``longtail_200k`` and ``pipeline_k4_50k``'s FASTQ pair, then
 K7's entry and the last lines. ``python3 chip_smoke.py --phase fleet`` runs
 the fleet phase alone, on its three inputs, ``longtail_200k``,
 ``duplex_240k`` and ``pipeline_k4_50k``'s FASTQ pair, after one standalone
-run of each whale's argv here, then the last lines.)
+run of each whale's argv here, then the last lines. ``python3 chip_smoke.py
+--phase route`` runs the route phase alone, on its four inputs,
+``longtail_200k``, ``duplex_240k``, ``many_quals_20k`` and ``fixed5_1M``,
+after the ``cuda`` runs it holds its cases to, then the last lines.)
 
 Phases (any failed check exits nonzero; nothing is caught and passed over):
 
@@ -127,14 +130,16 @@ Phases (any failed check exits nonzero; nothing is caught and passed over):
      duplex-reads`` output, 20,000 molecules x 3 pairs a strand, 100 bp,
      seed 47 (240,000 reads), on ``cuda`` and ``cpu``, records identical;
      ``filter --min-reads 6,3,3`` on the ``cuda`` output on the batch
-     engine and ``--classic`` (records, rejects and counts identical); and
+     engine, and both engines on its first 10,000 records, cut at a
+     template (records, rejects and counts identical; the classic engine
+     is per record, host only); and
      ``duplex --device-filter --filter-min-reads 6,3,3`` on ``cuda``,
      identical to ``duplex | filter``;
    - ``duplex_bias_120k``: 10,000 molecules, Beta(2, 2) strand split, 90%
      with a B strand, seed 48 (single-read strands, single-strand
      molecules and ``InsufficientReads`` rejects), ``duplex --min-reads 2 1
      0`` on ``cuda`` and ``cpu``, identical, and ``filter --min-reads
-     4,2,1`` on both engines, identical;
+     4,2,1`` on both engines as above, identical;
    - ``duplex_classic_24k``: 2,000 molecules, seed 47, ``duplex
      --classic`` on ``cuda``, identical to the fast engine's records;
    each duplex run's ``e2e`` line carries reads/s, wall, ``device_s``,
@@ -148,8 +153,9 @@ Phases (any failed check exits nonzero; nothing is caught and passed over):
      --pairs-per-molecule 2 --read-length 100 --seed 9`` output (320,000
      reads; BASELINE config 4 as ``bench.py`` builds it, at 4x its
      molecules), ``cuda`` and ``cpu``, records identical, K1 and K6
-     launched; ``filter -M 4,2,2`` on both engines on the output
-     (records, rejects and counts identical);
+     launched; ``filter -M 4,2,2`` on both engines on the output as above
+     (the batch engine on the whole, both on its first 10,000 records;
+     records, rejects and counts identical);
    - ``codec_classic_24k``: 6,000 molecules, ``codec --classic`` against
      the batch engine, both ``cuda``, records identical;
    - ``emseq_simplex_50k``, ``taps_simplex_50k``: ``simplex --em-seq`` /
@@ -294,7 +300,20 @@ Phases (any failed check exits nonzero; nothing is caught and passed over):
    daemon's per-command launch tallies) naming its kernels; ``stats``
    with at least 3 ``device.canary.ok`` after the last job and the
    breaker closed, ``/healthz`` 200 and ``/metrics``; ``jobs --shutdown``
-   (the client's) and exit 0; a ``serve`` line with the walls; then K7
+   (the client's) and exit 0; the daemon also runs with ``--journal`` and
+   ``--coalesce-window-ms 2`` (the coalescer's opt-in auto mode: its
+   ``stats`` must show the window armed while the pipeline and the fused
+   job run together, and disarmed for the single jobs, whose walls stay
+   comparable); after the shutdown its ``<journal>.routing.json`` holds
+   schema 1; a second daemon, started beside it, runs with
+   ``--coalesce-window-ms 200`` under ``FGUMI_TPU_COALESCE=1`` (the window
+   forced: the auto window is priced at the router's per-dispatch
+   overhead, a few milliseconds at most on the card, so two jobs' batches
+   rarely meet inside it), and two plain ``simplex`` jobs on
+   ``longtail_200k`` submitted to it at once must merge at least one K1
+   batch (``stats`` ``coalesce``), launch K1 fewer times together than
+   twice a solo run, and each write the bytes of its standalone run; a
+   ``serve`` line with the walls; then K7
    ``canary_sum`` against its plain version on the card, exactly (zeros,
    all-255 and random bytes at 1 MiB, 1, 17 and 1 MiB + 13 bytes), timed at
    1 MiB beside its bound, its plain version and ``torch.sum(x,
@@ -319,7 +338,24 @@ Phases (any failed check exits nonzero; nothing is caught and passed over):
    two jobs; ``b`` restarted (``--no-warmup``) takes its lease and replays
    nothing; every process shut down, exit 0; a ``fleet`` line with the
    walls, and each kernel's fleet launches (the shards' tallies, ``a``'s
-   K7 canaries) in the ``kernels`` line as ``fleet_launches``;
+   K7 canaries) in the ``kernels`` line as ``fleet_launches``; then the
+   ``route`` phase (:func:`route_phase`, in this process but R5, while the
+   mapped inputs finish building): R1 ``FGUMI_TPU_AUDIT=all`` on
+   ``longtail_200k_fast`` (K1), ``_fused`` (K1-f), ``duplex_240k`` (K1-r)
+   and ``many_quals_20k`` (K1-p2): the sentinel samples every dispatch,
+   none diverges, the records equal the earlier ``cuda`` run's; R2
+   ``device.fetch:corrupt-result:1.0:1`` under ``all``: a divergence, the
+   breaker's SDC trip, ``audit.divergence`` in the run report, exit 0 and
+   the clean records (the inline repair); R3 ``FGUMI_TPU_ROUTE=host``: no
+   wire launch, every batch a host batch, the same records, both walls;
+   R4 ``FGUMI_TPU_HYBRID=1`` on ``fixed5_1M_fast``: the route counters,
+   K1 launches plus host batches equal to the ``cuda`` run's batches, the
+   same records; R5 a child with ``device.dispatch:hang:1.0:1``,
+   ``FGUMI_TPU_FAULT_HANG_S=30`` and ``FGUMI_TPU_DISPATCH_DEADLINE_S=
+   0.5:2``: exit 3 before the hang could end, its deadline line within 3
+   s of the hang's start (the child's own log clock), no output; a
+   ``route`` line; each kernel's R1 launches in the ``kernels`` line as
+   ``audited_launches``;
 4. kernels at the main-path shapes the runs reported (the fast runs' largest
    batch; the simplex stage's largest batch of each ``cuda`` pipeline run:
    K1 on fused and ``--no-fuse`` ``pipeline_400k`` and on
@@ -2376,24 +2412,38 @@ def run_filter_duplex(inp, out, min_reads, engine):
     return records(out), records(out + ".rejects.bam"), counts, wall
 
 
+# the per-record filter engine on a duplex or codec run's records takes
+# their first records, cut at a template (host only; the batch engine
+# filters the whole output)
+DUPLEX_FILTER_CLASSIC_RECORDS = 10_000
+
+
 def duplex_filter_check(case, cons, work):
-    """Both filter engines on a duplex (or codec) run's records: records,
-    rejects, counts and reason counts identical. Returns (kept records,
-    summary)."""
+    """Both filter engines on a duplex (or codec) run's records: the batch
+    engine on the whole output, then both on its first
+    ``DUPLEX_FILTER_CLASSIC_RECORDS`` records (cut at a template): records,
+    rejects, counts and reason counts identical. Returns (the whole run's
+    kept records, summary)."""
     min_reads = DUPLEX_FILTER[case]
-    got = {}
-    for engine in ("fast", "classic"):
-        out = os.path.join(work, f"{case}.filter_{engine}.bam")
-        got[engine] = run_filter_duplex(cons, out, min_reads, engine)
-    (fk, fr, fc, fw), (ck, cr, cc, cw) = got["fast"], got["classic"]
-    check(fk == ck, f"{case}: filter and filter --classic records differ")
-    check(fr == cr, f"{case}: filter and filter --classic rejects differ")
-    check(fc == cc, f"{case}: filter and filter --classic counts differ")
+    fk, _, fc, fw = run_filter_duplex(
+        cons, os.path.join(work, f"{case}.filter_fast.bam"), min_reads,
+        "fast")
     check(fc["failed"] > 0, f"{case}: filter --min-reads {min_reads} "
                             "rejected nothing")
+    head = os.path.join(work, f"{case}.filter_head.bam")
+    n_head = split_at_template(cons, head, None,
+                               cut=DUPLEX_FILTER_CLASSIC_RECORDS)
+    got = {}
+    for engine in ("fast", "classic"):
+        out = os.path.join(work, f"{case}.filter_head_{engine}.bam")
+        got[engine] = run_filter_duplex(head, out, min_reads, engine)
+    (hk, hr, hc, _), (ck, cr, cc, cw) = got["fast"], got["classic"]
+    check(hk == ck, f"{case}: filter and filter --classic records differ")
+    check(hr == cr, f"{case}: filter and filter --classic rejects differ")
+    check(hc == cc, f"{case}: filter and filter --classic counts differ")
     summary = {"case": f"{case}_filter", "min_reads": min_reads, **fc,
-               "fast_wall_s": fw, "classic_wall_s": cw,
-               "records_identical": True}
+               "fast_wall_s": fw, "classic_records": n_head,
+               "classic_wall_s": cw, "records_identical": True}
     print("e2e " + json.dumps(summary), flush=True)
     return fk, summary
 
@@ -4438,6 +4488,66 @@ SERVE_INPUTS = ("longtail_200k", "pipeline_k4_50k")
 SERVE_START_S = 180  # bound on the daemon's start, its warm-up included
 SERVE_JOB_S = 600
 SERVE_CANARIES = 3
+# the phase's daemon opts in to the coalescer's auto mode: the window
+# opens at 2 running jobs, priced at the router's per-dispatch overhead
+SERVE_AUTO_COALESCE_MS = "2"
+# the coalesced pair runs on a second daemon whose merge window is forced
+# (the priced window is a few milliseconds on the card, so two jobs'
+# batches rarely meet inside it; at 50 ms 1-3 of the pair's 5 batch pairs
+# merged, so 200 ms)
+SERVE_COALESCE_MS = "200"
+
+
+def _spawn_serve(sock, args, env=None):
+    """``python -m fgumi_tpu_torch serve --socket sock *args`` in a child
+    process, its stderr read by a :class:`_DaemonLog`."""
+    kw = _child_kwargs(env)
+    kw.pop("text")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "fgumi_tpu_torch", "serve", "--socket", sock,
+         *args], stdin=subprocess.DEVNULL, stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True, **kw)
+    return proc, _DaemonLog(proc)
+
+
+def _stop_serve(proc, dlog):
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait(timeout=60)
+    dlog.join()
+
+
+class _CoalescePoll:
+    """``stats``' ``coalesce`` section polled on a thread while jobs run:
+    whether the window was armed with 2 or more jobs running."""
+
+    def __init__(self, sock, period=0.25):
+        import threading
+
+        from fgumi_tpu_torch.serve.client import ServeClient
+
+        self.period = period
+        self.armed_at = []
+        self.polls = 0
+        self._client = ServeClient(sock, timeout=30)
+        self._stop = threading.Event()
+        self._t = threading.Thread(target=self._run, daemon=True)
+        self._t.start()
+
+    def _run(self):
+        while not self._stop.is_set():
+            try:
+                coal = self._client.stats()["coalesce"] or {}
+            except Exception:  # noqa: BLE001 - a missed poll is no result
+                coal = {}
+            self.polls += 1
+            if coal.get("armed"):
+                self.armed_at.append(coal.get("active_jobs"))
+            self._stop.wait(self.period)
+
+    def stop(self):
+        self._stop.set()
+        self._t.join(timeout=30)
 
 
 class _DaemonLog:
@@ -4592,7 +4702,9 @@ def serve_phase(paths, work, dev):
     longtail = paths["longtail_200k"]
     r1, r2 = paths["pipeline_k4_50k"]
     out = {k: os.path.join(work, f"serve_{k}.bam")
-           for k in ("cold", "warm", "pipeline", "fused")}
+           for k in ("cold", "warm", "pipeline", "fused", "pair_a",
+                     "pair_b")}
+    journal = os.path.join(work, "serve.journal")
     argvs = {
         "cold": ["simplex", "-i", longtail, "-o", out["cold"]],
         "warm": ["simplex", "-i", longtail, "-o", out["warm"]],
@@ -4601,20 +4713,28 @@ def serve_phase(paths, work, dev):
                      out["pipeline"] + ".json"],
         "fused": ["simplex", "-i", longtail, "-o", out["fused"], "--device",
                   "cuda", "--min-reads", "1", "--device-filter",
-                  *FILTER_OPTS, "--stats-json", out["fused"] + ".json"]}
-    standalone = {k: _standalone_digest(argvs[k])
-                  for k in ("pipeline", "fused")}
-    t_std = time.monotonic() - t0
-    kw = _child_kwargs()
-    kw.pop("text")
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "fgumi_tpu_torch", "serve", "--socket", sock,
-         "--workers", "2", "--health-period", "1", "--metrics-port", "0",
-         "--report-dir", reports], stdin=subprocess.DEVNULL,
-        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True, **kw)
+                  *FILTER_OPTS, "--stats-json", out["fused"] + ".json"],
+        **{k: ["simplex", "-i", longtail, "-o", out[k], "--device", "cuda",
+               "--stats-json", out[k] + ".json"]
+           for k in ("pair_a", "pair_b")}}
+    proc, dlog = _spawn_serve(
+        sock, ["--workers", "2", "--health-period", "1", "--metrics-port",
+               "0", "--report-dir", reports, "--journal", journal,
+               "--coalesce-window-ms", SERVE_AUTO_COALESCE_MS])
     t_spawn = time.monotonic()
-    dlog = _DaemonLog(proc)
+    # the forced-window daemon for the coalesced pair, warming beside it
+    co_sock = os.path.join(work, "serve_co.sock")
+    co_proc, co_log = _spawn_serve(
+        co_sock, ["--workers", "2", "--coalesce-window-ms",
+                  SERVE_COALESCE_MS], {"FGUMI_TPU_COALESCE": "1"})
     try:
+        # the standalone runs the jobs are held to, while the daemon warms
+        standalone = {k: _standalone_digest(argvs[k])
+                      for k in ("pipeline", "fused", "pair_a", "pair_b")}
+        # a solo run's K1 launches: the standalone pair_a run's own tally
+        with open(out["pair_a"] + ".json") as f:
+            solo_k1 = json.load(f)["launches"]["consensus_wire_full"]
+        t_std = time.monotonic() - t0
         up = dlog.listening.wait(SERVE_START_S)
         check(up and proc.poll() is None,
               f"serve did not start (rc {proc.poll()}):\n{dlog.tail()}")
@@ -4622,16 +4742,28 @@ def serve_phase(paths, work, dev):
         check(dlog.warm_s is not None and dlog.metrics_port,
               f"serve: no warm-up or metrics line:\n{dlog.tail()}")
         client = ServeClient(sock, timeout=30)
+        solo_poll = _CoalescePoll(sock)
         cold = _serve_job(client, argvs["cold"])
         warm = _serve_job(client, argvs["warm"])
+        solo_poll.stop()
         check(records(out["cold"]) == records(out["warm"]),
               "serve: the cold and warm jobs' records differ")
+        check(not solo_poll.armed_at and solo_poll.polls,
+              f"serve: the coalescer armed for a single job "
+              f"({solo_poll.armed_at})")
+        before_auto = client.stats()["coalesce"] or {}
         t_pair = time.monotonic()
+        auto_poll = _CoalescePoll(sock)
         ids = {k: client.submit(argvs[k])["id"] for k in ("pipeline",
                                                           "fused")}
         pair = {k: client.wait(jid, timeout=SERVE_JOB_S)
                 for k, jid in ids.items()}
         pair_s = time.monotonic() - t_pair
+        auto_poll.stop()
+        auto = client.stats()["coalesce"] or {}
+        check(any(n >= 2 for n in auto_poll.armed_at),
+              f"serve: the opted-in coalescer never armed while two jobs "
+              f"ran ({auto_poll.polls} polls): {auto}")
         launches = {}
         for k, job in pair.items():
             check(job["state"] == "done",
@@ -4646,6 +4778,39 @@ def serve_phase(paths, work, dev):
               f"serve pipeline job launches {p}")
         check(fu["consensus_wire_filter"] >= 1
               and not fu["umi_hamming"], f"serve fused job launches {fu}")
+        # two plain simplex jobs at once on the forced-window daemon:
+        # their K1 batches merge in the coalescer, each output
+        # byte-identical to its standalone run
+        up = co_log.listening.wait(SERVE_START_S)
+        check(up and co_proc.poll() is None,
+              f"serve (forced coalesce) did not start (rc "
+              f"{co_proc.poll()}):\n{co_log.tail()}")
+        co_client = ServeClient(co_sock, timeout=30)
+        before = co_client.stats()["coalesce"] or {}
+        t_co = time.monotonic()
+        ids = {k: co_client.submit(argvs[k])["id"] for k in ("pair_a",
+                                                             "pair_b")}
+        co_jobs = {k: co_client.wait(jid, timeout=SERVE_JOB_S)
+                   for k, jid in ids.items()}
+        co_s = time.monotonic() - t_co
+        co_k1 = 0
+        for k, job in co_jobs.items():
+            check(job["state"] == "done",
+                  f"serve {k} job: {job['state']}: {job['error']}")
+            check(_digest(out[k]) == standalone[k],
+                  f"serve {k} job: output differs from the standalone run")
+            with open(out[k] + ".json") as f:
+                co_k1 += json.load(f)["launches"]["consensus_wire_full"]
+        coal = co_client.stats()["coalesce"]
+        merged = coal["merged_batches"] - before.get("merged_batches", 0)
+        check(merged >= 1, f"serve coalesce: no merged batch: {coal}")
+        check(co_k1 < 2 * solo_k1,
+              f"serve coalesce: the pair launched K1 {co_k1} times, a solo "
+              f"run {solo_k1}")
+        co_client.shutdown()
+        rc = co_proc.wait(timeout=120)
+        check(rc == 0, f"serve (forced coalesce) exited {rc}:\n"
+              f"{co_log.tail()}")
         # the canaries stand down while dispatches are in flight, and each
         # finished job replaces the daemon's flat counters: wait for three
         # after the last job
@@ -4675,10 +4840,13 @@ def serve_phase(paths, work, dev):
         rc = proc.wait(timeout=120)
         check(rc == 0, f"serve exited {rc}:\n{dlog.tail()}")
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait(timeout=60)
-        dlog.join()
+        _stop_serve(co_proc, co_log)
+        _stop_serve(proc, dlog)
+    # the routing snapshot the daemon wrote on close
+    with open(journal + ".routing.json") as f:
+        snap = json.load(f)
+    check(snap.get("schema_version") == 1 and "router" in snap,
+          f"serve: routing snapshot {sorted(snap)}")
     summary = {
         "warm_up_s": dlog.warm_s, "start_s": start_s,
         "standalone_s": t_std,
@@ -4690,6 +4858,24 @@ def serve_phase(paths, work, dev):
                                   if c}} for k, j in pair.items()},
         "canaries_ok": ok, "canaries": stats["monitor"]["canaries"],
         "k7_launches": k7_launches, "healthz": 200,
+        # the opted-in auto window during the pipeline + fused pair
+        "auto_coalesce": {
+            "armed_polls": len(auto_poll.armed_at),
+            "polls": auto_poll.polls,
+            "priced_window_ms": auto.get("priced_window_ms"),
+            **{k: auto.get(k, 0) - before_auto.get(k, 0)
+               for k in ("merged_batches", "solo_flushes")}},
+        "coalesce": {"pair_s": co_s, "merged_batches": merged,
+                     "pair_k1": co_k1, "solo_k1": solo_k1,
+                     "window_ms": coal["window_ms"],
+                     "priced_window_ms": coal["priced_window_ms"],
+                     "partners": coal["partners"],
+                     "solo_flushes": coal["solo_flushes"],
+                     "run_s": {k: j["finished_unix"] - j["started_unix"]
+                               for k, j in co_jobs.items()}},
+        "routing_snapshot": {"schema_version": snap["schema_version"],
+                             "link_samples": snap["router"]["mesh"]["1"][
+                                 "link_bps"]["samples"]},
         "phase_s": time.monotonic() - t0}
     print("serve " + json.dumps(summary), flush=True)
     k7 = check_canary_kernel(dev, 1 << 20, timed=True)
@@ -4698,6 +4884,261 @@ def serve_phase(paths, work, dev):
     return (kernel_entry("canary_sum", k7, k7_launches, REPLACES_CANARY,
                          "serve_health_monitor", CANARY_SOURCE),
             (argvs["pipeline"], standalone["pipeline"]))
+
+
+# ------------------------------------------------------------------ route
+
+# the route phase (the offload router, the result sentinel and dispatch
+# deadlines): in this process but R5, on inputs and cuda outputs the
+# earlier phases built
+ROUTE_INPUTS = ("longtail_200k", "duplex_240k", "many_quals_20k",
+                "fixed5_1M")
+ROUTE_DEADLINE = "0.5:2"   # R5's FGUMI_TPU_DISPATCH_DEADLINE_S
+ROUTE_HANG_S = "30"        # R5's FGUMI_TPU_FAULT_HANG_S
+# R5: the child exits 3 before the hang could have ended (a child needs
+# ~8-11 s to reach its first dispatch on the card host), and its error line
+# comes within the deadline's ceiling (+1 s) of the hang's start
+ROUTE_EXIT_S = 25
+WIRE_KERNELS = ("consensus_wire_full", "consensus_wire_filter",
+                "consensus_wire_resident", "consensus_wire_packed2")
+
+
+class _Env:
+    """Environment variables set for one in-process run, restored after;
+    the fault registry, the sentinel and the breaker start it clean and
+    are left clean."""
+
+    def __init__(self, **env):
+        self.env = env
+
+    def __enter__(self):
+        from fgumi_tpu_torch.ops.breaker import BREAKER
+        from fgumi_tpu_torch.ops.sentinel import SENTINEL
+        from fgumi_tpu_torch.utils import faults
+
+        self.old = {k: os.environ.get(k) for k in self.env}
+        os.environ.update(self.env)
+        faults.reset()
+        SENTINEL.reset()
+        BREAKER.reset()
+        return self
+
+    def __exit__(self, *exc):
+        from fgumi_tpu_torch.ops.breaker import BREAKER
+        from fgumi_tpu_torch.ops.sentinel import SENTINEL
+        from fgumi_tpu_torch.utils import faults
+
+        for k, v in self.old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        faults.reset()
+        SENTINEL.reset()
+        BREAKER.reset()
+        return False
+
+
+def route_run(label, command, inp, flags, work, env):
+    """One in-process ``cuda`` run of ``command`` under ``env`` with a run
+    report, between a reset and a read of the launch counts: its
+    ``--stats-json``, its report, its counts, the sentinel's and the
+    breaker's snapshots after it, and its output path."""
+    from fgumi_tpu_torch import cli
+    from fgumi_tpu_torch.ops.breaker import BREAKER
+    from fgumi_tpu_torch.ops.sentinel import SENTINEL
+
+    out = os.path.join(work, f"route_{label}.bam")
+    rpt = out + ".report.json"
+    with _Env(**env):
+        reset_counts()
+        t0 = time.monotonic()
+        rc = cli.main(["--run-report", rpt, command, "-i", inp, "-o", out,
+                       "--device", "cuda", "--stats-json", out + ".json",
+                       *flags])
+        wall = time.monotonic() - t0
+        counts = read_counts()
+        audit = SENTINEL.snapshot()
+        breaker = BREAKER.snapshot()
+    check(rc == 0, f"route {label}: exit {rc}")
+    with open(out + ".json") as f:
+        st = json.load(f)
+    with open(rpt) as f:
+        report = json.load(f)
+    return {"st": st, "report": report, "counts": counts, "audit": audit,
+            "breaker": breaker, "out": out, "wall_s": wall}
+
+
+def route_phase(paths, work, clean) -> dict:
+    """R1-R5 (the offload router, the result sentinel, deadlines).
+    ``clean``: the earlier ``cuda`` run of each case, name -> (command,
+    flags, summary with ``out``, its wire kernel)."""
+    t0 = time.monotonic()
+    out = {}
+    # R5's child starts first and runs beside R1-R4 (its own process and
+    # clock: a launch that hangs on the host, abandoned at its deadline)
+    command, inp, flags, ref, kernel = clean["longtail_200k_fast"]
+    res = os.path.join(work, "route_deadline.bam")
+    r5 = subprocess.Popen(
+        [sys.executable, "-m", "fgumi_tpu_torch", command, "-i", inp, "-o",
+         res, "--device", "cuda", *flags], stdin=subprocess.DEVNULL,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, **_child_kwargs(
+            {"FGUMI_TPU_FAULT": "device.dispatch:hang:1.0:1",
+             "FGUMI_TPU_FAULT_HANG_S": ROUTE_HANG_S,
+             "FGUMI_TPU_DISPATCH_DEADLINE_S": ROUTE_DEADLINE}))
+    t1 = time.monotonic()
+    r5_out = {}
+
+    def r5_wait():
+        try:
+            r5_out["stderr"] = r5.communicate(timeout=120)[1]
+        except subprocess.TimeoutExpired:
+            r5.kill()
+            r5_out["stderr"] = r5.communicate()[1]
+        r5_out["end"] = time.monotonic()
+
+    import threading
+
+    r5_thread = threading.Thread(target=r5_wait, daemon=True)
+    r5_thread.start()
+    try:
+        # R1: every dispatch audited inline against the f64 host engine
+        r1 = {}
+        for name in ("longtail_200k_fast", "longtail_200k_fused",
+                     "duplex_240k", "many_quals_20k"):
+            command, inp, flags, ref, kernel = clean[name]
+            r = route_run(f"audit_{name}", command, inp, flags, work,
+                          {"FGUMI_TPU_AUDIT": "all"})
+            dispatches = r["st"]["device_stats"]["dispatches"]
+            a = r["audit"]
+            check(a["sampled"] == dispatches and dispatches > 0
+                  and a["divergent"] == 0 and a["dropped"] == 0,
+                  f"route R1 {name}: audit {a}, {dispatches} dispatches")
+            check(r["counts"][kernel] > 0,
+                  f"route R1 {name}: {kernel} never launched: {r['counts']}")
+            check(records(r["out"]) == records(ref["out"]),
+                  f"route R1 {name}: records differ from the cuda run's")
+            r1[name] = {"kernel": kernel, "launches": r["counts"][kernel],
+                        "dispatches": dispatches, "sampled": a["sampled"],
+                        "clean": a["clean"], "divergent": 0,
+                        "wall_s": r["wall_s"], "cuda_wall_s": ref["wall_s"]}
+        out["R1"] = r1
+        # R2: one corrupted fetch under AUDIT=all: caught, quarantined,
+        # repaired
+        command, inp, flags, ref, kernel = clean["longtail_200k_fast"]
+        r = route_run("corrupt", command, inp, flags, work,
+                      {"FGUMI_TPU_AUDIT": "all",
+                       "FGUMI_TPU_FAULT": "device.fetch:corrupt-result:1.0:1"})
+        a, b = r["audit"], r["breaker"]
+        check(a["divergent"] >= 1, f"route R2: audit {a}")
+        check(b.get("sdc_trips", 0) >= 1 and any(
+            "silent data corruption" in t["reason"] for t in b["transitions"]),
+            f"route R2: breaker {b}")
+        check(r["report"].get("audit", {}).get("divergence"),
+              "route R2: no audit.divergence in the run report")
+        check(r["report"]["exit_status"] == 0, "route R2: exit status")
+        check(records(r["out"]) == records(ref["out"]),
+              "route R2: records differ from the clean run's")
+        out["R2"] = {"divergent": a["divergent"], "sdc_trips": b["sdc_trips"],
+                     "fields": a["divergence"][0]["fields"],
+                     "families": a["divergence"][0]["families"],
+                     "exit": 0, "wall_s": r["wall_s"]}
+        # R3: every batch on the native f64 engine, the card idle
+        r = route_run("host", command, inp, flags, work,
+                      {"FGUMI_TPU_ROUTE": "host"})
+        wire = {k: r["counts"][k] for k in WIRE_KERNELS}
+        dev = r["st"]["device_stats"]
+        check(not any(wire.values()), f"route R3: wire launches {wire}")
+        check(r["st"]["host_batches"] > 0
+              and dev.get("route_host") == r["st"]["host_batches"]
+              and not dev.get("route_device"),
+              f"route R3: {r['st']['host_batches']} host batches, routes "
+              f"{dev}")
+        check(records(r["out"]) == records(ref["out"]),
+              "route R3: records differ from the cuda run's")
+        out["R3"] = {"host_batches": r["st"]["host_batches"],
+                     "route_host": dev.get("route_host"),
+                     "wall_s": r["st"]["wall_s"], "cuda_wall_s": ref["wall_s"]}
+        # R4: the opt-in hybrid cost model on fixed5_1M
+        command, inp, flags, ref, kernel = clean["fixed5_1M_fast"]
+        r = route_run("hybrid", command, inp, flags, work,
+                      {"FGUMI_TPU_HYBRID": "1"})
+        dev = r["st"]["device_stats"]
+        k1 = r["counts"]["consensus_wire_full"]
+        host = r["st"]["host_batches"]
+        check(k1 + host == ref["device_batches"],
+              f"route R4: {k1} K1 launches + {host} host batches != "
+              f"{ref['device_batches']} batches")
+        check(records(r["out"]) == records(ref["out"]),
+              "route R4: records differ from the cuda run's")
+        out["R4"] = {"route_device": dev.get("route_device", 0),
+                     "route_host": dev.get("route_host", 0),
+                     "probes": r["report"]["metrics"].get("device.route.probe",
+                                                          0),
+                     "k1_launches": k1, "host_batches": host,
+                     "routing": r["report"].get("device", {}).get("routing"),
+                     "wall_s": r["st"]["wall_s"], "cuda_wall_s": ref["wall_s"]}
+    except BaseException:
+        # a failed check above must not leave the child behind
+        if r5.poll() is None:
+            r5.kill()
+        raise
+    # R5: its child's end
+    r5_thread.join(180)
+    check("end" in r5_out, "route R5: the child did not end")
+    stderr = r5_out["stderr"]
+    child_s = r5_out["end"] - t1
+    errors = _error_lines(stderr)
+    check(r5.returncode == 3,
+          f"route R5: exit {r5.returncode}: {stderr[-2000:]}")
+    check(child_s < ROUTE_EXIT_S, f"route R5: the child took {child_s:.1f}s")
+    # the child's own log clock (+seconds since its start): the hang began,
+    # the deadline line came
+    stamps = {}
+    for ln in stderr.splitlines():
+        m = re.search(r"\+([0-9.]+)s\]: (.*)$", ln)
+        if m and "hanging" in m.group(2):
+            stamps["hang"] = float(m.group(1))
+        elif m and "did not complete within" in m.group(2):
+            stamps["deadline"] = float(m.group(1))
+    ceiling = float(ROUTE_DEADLINE.split(":")[1])
+    check(len(stamps) == 2
+          and stamps["deadline"] - stamps["hang"] < ceiling + 1.0,
+          f"route R5: hang and deadline stamps {stamps}")
+    base = os.path.basename(res)
+    left = [f for f in os.listdir(work) if f.startswith((base, f".{base}"))]
+    check(left == [], f"route R5: published {left}")
+    check(len(errors) == 1 and "did not complete within" in errors[0],
+          f"route R5: error lines {errors}")
+    out["R5"] = {"exit": 3, "child_wall_s": child_s,
+                 "hang_at_s": stamps["hang"],
+                 "deadline_after_s": stamps["deadline"] - stamps["hang"],
+                 "error_line": errors[0].split(": ", 1)[-1]}
+    out["phase_s"] = time.monotonic() - t0
+    print("route " + json.dumps(out), flush=True)
+    return out
+
+
+def route_clean_runs(paths, work, e2e, duplexes) -> dict:
+    """The earlier cuda run of each route case: (command, input, flags,
+    summary, the kernel the case holds)."""
+    return {
+        "longtail_200k_fast": ("simplex", paths["longtail_200k"], [],
+                               e2e["longtail_200k"]["fast"],
+                               "consensus_wire_full"),
+        "longtail_200k_fused": ("simplex", paths["longtail_200k"],
+                                ["--min-reads", "1", "--device-filter",
+                                 *FILTER_OPTS],
+                                e2e["longtail_200k"]["fused"],
+                                "consensus_wire_filter"),
+        "duplex_240k": ("duplex", paths["duplex_240k"], [],
+                        duplexes["duplex_240k"]["cuda"],
+                        "consensus_wire_resident"),
+        "many_quals_20k": ("simplex", paths["many_quals_20k"], [],
+                           e2e["many_quals_20k"]["fast"],
+                           "consensus_wire_packed2"),
+        "fixed5_1M_fast": ("simplex", paths["fixed5_1M"], [],
+                           e2e["fixed5_1M"]["fast"], "consensus_wire_full")}
 
 
 # ------------------------------------------------------------------ fleet
@@ -5155,9 +5596,10 @@ def main():
     except ImportError as e:
         fail(f"the fgumi_tpu_torch package is missing: {e}", 2)
     if sys.argv[1:] not in ([], ["--phase", "mapped"], ["--phase", "qc"],
-                            ["--phase", "serve"], ["--phase", "fleet"]):
+                            ["--phase", "serve"], ["--phase", "fleet"],
+                            ["--phase", "route"]):
         fail(f"unknown arguments {sys.argv[1:]} (none, or --phase mapped, "
-             "qc, serve or fleet)", 2)
+             "qc, serve, fleet or route)", 2)
     # --phase mapped: the mapped phase alone, with fixed5_1M (whose
     # --device-filter run device_filter_env compares with); --phase qc: the
     # mapped chain and amplicon_paired's fast paired group, then the qc
@@ -5199,6 +5641,9 @@ def main():
     elif phase == "qc":
         inputs = {"amplicon_paired": (_amplicon, AMPLICONS["amplicon_paired"]),
                   **_mapped_inputs("")[0]}
+    elif phase == "route":
+        inputs = {k: (_simulate_duplex, DUPLEX[k]) if k in DUPLEX
+                  else (_simulate, INPUTS[k]) for k in ROUTE_INPUTS}
     else:
         inputs = {"fixed5_1M": (_simulate, INPUTS["fixed5_1M"]),
                   **_mapped_inputs("")[0]}
@@ -5276,6 +5721,9 @@ def main():
                 name: (argv, pipeline_run[1] if name == "pipeline" else
                        _digest(argv[argv.index("-o") + 1]), walls[name])
                 for name, argv in argvs.items()})
+            # the route phase runs while the mapped inputs finish building
+            route = route_phase(paths, work, route_clean_runs(
+                paths, work, e2e, duplexes))
             fused = e2e["fixed5_1M"]["fused"]
             paired = groups["amplicon_paired_paired_fast"]
         elif phase == "mapped":
@@ -5289,12 +5737,32 @@ def main():
         elif phase == "fleet":
             ready(*FLEET_INPUTS)
             fleet = fleet_phase(work, fleet_runs_alone(paths, work))
+        elif phase == "route":
+            # the cuda runs the route cases are held to, then the phase
+            ready(*ROUTE_INPUTS)
+            e2e = {"longtail_200k": {
+                "fast": e2e_case("longtail_200k_fast",
+                                 paths["longtail_200k"], work, [], False),
+                "fused": e2e_case("longtail_200k_fused",
+                                  paths["longtail_200k"], work,
+                                  ["--min-reads", "1", "--device-filter",
+                                   *FILTER_OPTS], True)},
+                "many_quals_20k": {"fast": e2e_case(
+                    "many_quals_20k", paths["many_quals_20k"], work, [],
+                    False, packed2_route=True)},
+                "fixed5_1M": {"fast": e2e_case(
+                    "fixed5_1M_fast", paths["fixed5_1M"], work, [],
+                    False)}}
+            duplexes = {"duplex_240k": {"cuda": duplex_run(
+                "duplex_240k", paths["duplex_240k"], work, "cuda", [])}}
+            route = route_phase(paths, work, route_clean_runs(
+                paths, work, e2e, duplexes))
         if phase == "qc":
             ready(*sims)
             mapped = {"mapped_chain_400k": mapped_chain_case(paths, work)}
             paired = group_case("amplicon_paired", "paired",
                                 paths["amplicon_paired"], work, "fast")
-        elif phase not in ("serve", "fleet"):
+        elif phase not in ("serve", "fleet", "route"):
             ready(*mapped_inputs)
             mapped = mapped_phase(paths, work, fused)
         if phase in (None, "qc"):
@@ -5305,7 +5773,7 @@ def main():
     if every_phase:
         entries = earlier_kernel_entries(dev, e2e, groups, pipes, duplexes,
                                          codecs, staged, dedup)
-    elif phase in ("serve", "fleet"):
+    elif phase in ("serve", "fleet", "route"):
         entries = []
     elif phase == "qc":
         k4 = kernel_phase_main_path(
@@ -5320,7 +5788,7 @@ def main():
             "consensus_wire_filter", k1f["k1f_fixed"],
             fused["launches"]["consensus_wire_filter"], REPLACES_FILTER,
             "fixed5_1M_fused")]
-    if phase not in ("serve", "fleet"):
+    if phase not in ("serve", "fleet", "route"):
         entries.append(kernel_entry(
             "consensus_wire_full", check_k1_mapped(
                 mapped["mapped_chain_400k"], dev),
@@ -5330,10 +5798,15 @@ def main():
         entries.append(k7)
     if phase is None:
         # the fleet phase's launches beside each kernel's main-path count:
-        # the whales' shards (each its own --stats-json) and daemon a's K7
+        # the whales' shards (each its own --stats-json) and daemon a's K7;
+        # and the route phase's audited (R1) launches
         for e in entries:
             if e["name"] in fleet["launches"]:
                 e["fleet_launches"] = fleet["launches"][e["name"]]
+            for case, r1 in route["R1"].items():
+                if r1["kernel"] == e["name"]:
+                    e.setdefault("audited_launches", {})[case] = \
+                        r1["launches"]
     print(f"total {time.monotonic() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)

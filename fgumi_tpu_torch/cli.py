@@ -833,6 +833,8 @@ def cmd_simplex(args, argv, source=None, sink=None):
             "records_written": n_out,
             "wall_s": dt,
             "device_batches": kern.batches,
+            # batches the offload router sent to the native f64 engine
+            "host_batches": kern.host_batches,
             "batch_shapes": kern.batch_shapes,
             "launches": {k: counters[k] - counters0[k] for k in counters},
             "fused_batches": kern.fused_batches,
@@ -1137,6 +1139,8 @@ def cmd_duplex(args, argv):
             "rejected": dict(sorted(s.rejected.items())),
             "wall_s": dt,
             "device_batches": kern.batches,
+            # batches the offload router sent to the native f64 engine
+            "host_batches": kern.host_batches,
             "batch_shapes": kern.batch_shapes,
             "launches": {k: counters[k] - counters0[k] for k in counters},
             "suspect_positions": kf,
@@ -1400,6 +1404,8 @@ def cmd_codec(args, argv):
             "duplex_disagreements": s.duplex_disagreement_base_count,
             "wall_s": dt,
             "device_batches": kern.batches,
+            # batches the offload router sent to the native f64 engine
+            "host_batches": kern.host_batches,
             "batch_shapes": kern.batch_shapes,
             "launches": {k: counters[k] - counters0[k] for k in counters},
             "suspect_positions": kern.fallback_positions,
@@ -3981,9 +3987,14 @@ def _add_serve(sub):
                         "protocol op read the same live snapshot")
     p.add_argument("--coalesce-window-ms", type=float, default=None,
                    metavar="MS",
-                   help="cross-job dispatch coalescing window; 0 (off) is "
-                        "what the port does, a window above 0 is not yet "
-                        "ported")
+                   help="cross-job dispatch coalescing window: while >= 2 "
+                        "jobs are running, compatible device batches from "
+                        "different jobs are held up to this long and "
+                        "merged into one launch, split back per job at "
+                        "resolve (byte-identical per job). 0 disables; "
+                        "default: FGUMI_TPU_COALESCE_WINDOW_MS; unset "
+                        "(and FGUMI_TPU_COALESCE unset), coalescing is "
+                        "off")
     g = p.add_argument_group("JAX-only",
                              "reference options this port refuses (exit 2)")
     g.add_argument("--compile-cache", default=None, metavar="DIR",
@@ -3993,11 +4004,7 @@ def _add_serve(sub):
 
 def _serve_refusal(args):
     """The line refusing a ``serve`` option of a part the port lacks, or
-    None: the coalescer's window, the XLA cache."""
-    if args.coalesce_window_ms is not None and args.coalesce_window_ms > 0:
-        return (f"--coalesce-window-ms {args.coalesce_window_ms:g}: not yet "
-                "ported (the cross-job dispatch coalescer; 0 = off is what "
-                "the port does)")
+    None: the XLA cache."""
     if args.compile_cache is not None:
         return ("--compile-cache: JAX-only (the persistent XLA compile "
                 "cache; the port compiles its kernels once into _build/)")
@@ -4065,9 +4072,14 @@ def cmd_serve(args, argv):
     if args.conn_cap is not None and args.conn_cap < 0:
         log.error("--conn-cap must be >= 0 (0 = unlimited)")
         return 2
-    if args.coalesce_window_ms is not None and args.coalesce_window_ms < 0:
-        log.error("--coalesce-window-ms must be >= 0 (0 = off)")
-        return 2
+    if args.coalesce_window_ms is not None:
+        if args.coalesce_window_ms < 0:
+            log.error("--coalesce-window-ms must be >= 0 (0 = off)")
+            return 2
+        # the coalescer reads the variable at each dispatch: the flag is
+        # the daemon's spelling of FGUMI_TPU_COALESCE_WINDOW_MS
+        os.environ["FGUMI_TPU_COALESCE_WINDOW_MS"] = \
+            str(args.coalesce_window_ms)
     if args.report_dir:
         try:
             os.makedirs(args.report_dir, exist_ok=True)
@@ -4724,9 +4736,7 @@ def _refuse_globals(args) -> int:
 
     spec = faults.unported_spec()
     if spec is not None:
-        log.error("FGUMI_TPU_FAULT %s: not yet ported (device.fetch needs "
-                  "the result sentinel, serve.coalesce the cross-job "
-                  "coalescer)", spec)
+        log.error("FGUMI_TPU_FAULT %s: not yet ported", spec)
         return 2
     return 0
 
@@ -4857,6 +4867,12 @@ def _device_failure(e):
                   lines[0] if lines else "out of memory")
         return 4
     kernel = sys.modules.get(__package__ + ".ops.kernel")
+    if kernel is not None and isinstance(e, kernel.DeadlineExceeded):
+        # a dispatch abandoned at its deadline: 3 when an injected hang
+        # caused it (as every injected fault), 1 for a real wedge
+        FLIGHT.dump("unhandled-exception", exc=e)
+        log.error("%s", e)
+        return 3 if e.injected else 1
     if kernel is not None and isinstance(e, kernel.DeviceFailure):
         FLIGHT.dump("unhandled-exception", exc=e)
         log.error("%s", e)
@@ -4991,6 +5007,13 @@ def _main_scoped(args, argv):
                          len(tracer.snapshot()), trace_path)
             except OSError as e:
                 log.error("failed to write trace %s: %s", trace_path, e)
+        # in-flight background audits reach their verdicts before the
+        # command exits (a divergence must trip the breaker and land in
+        # this run's report); the module is looked up, not imported
+        sentinel = sys.modules.get(__package__ + ".ops.sentinel")
+        if sentinel is not None and not sentinel.SENTINEL.drain():
+            log.warning("audit sentinel: background audits still pending "
+                        "at command exit; report may undercount")
         if report_path:
             from .observe.report import emit, fold_device_stats
 

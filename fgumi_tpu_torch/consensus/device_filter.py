@@ -282,8 +282,13 @@ class SimplexFilterStage:
         self._account(verdicts, keep, newly)
 
         if fused is not None:
+            from ..ops.router import ROUTER
+
             idxs, resident, clean = fused
             rows = np.nonzero(clean & keep[idxs])[0]
+            # the fused route's fetch scales with the kept share (the
+            # router prices a fused batch with it)
+            ROUTER.observe_filter_keep(len(rows), int(clean.sum()))
             if len(rows):
                 fb, fq, d32, e32 = kernel.filter_gather_filtered(resident,
                                                                  rows)

@@ -736,7 +736,18 @@ class FastSimplexCaller:
         codes_d, quals_d, starts = pad_segments_gather(codes, quals, rows_all,
                                                        L_max, counts)
         # the fused route needs u16 depths (no family of 65536+ reads)
-        if self.filter_stage is not None and counts.max() < 65536:
+        fused = self.filter_stage is not None and counts.max() < 65536
+        from ..ops.kernel import HOST_DISPATCH
+        from ..ops.router import ROUTER
+
+        # the offload router (ops/router.py): a host batch runs on the
+        # native f64 engine at resolve time (full columns; a fused filter
+        # stage then judges them on the host)
+        if ROUTER.decide_batch(kernel, codes_d.shape[0], len(multi), L_max,
+                               filtered=fused) == "host":
+            return ("segw", multi, starts, codes_d, quals_d,
+                    HOST_DISPATCH), blocks0
+        if fused:
             ticket = kernel.device_call_segments_wire_filtered(
                 codes_d, quals_d, starts, table.cons_len[multi],
                 (opts.min_reads, opts.min_consensus_base_quality,

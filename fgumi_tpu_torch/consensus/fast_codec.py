@@ -338,18 +338,31 @@ class FastCodecCaller:
 
         # ---- duplex combine, one pass over the concatenated strands: K6
         # on the kernel's device, byte-identical to the classic
-        # combine_arrays
+        # combine_arrays (FGUMI_TPU_CODEC_COMBINE: unset or ``device`` K6,
+        # ``host`` the numpy combine, ``auto`` the router's chooser; the
+        # host route of FGUMI_TPU_ROUTE=host keeps the card idle)
         from ..ops.kernel import codec_combine_device
+        from ..ops.router import (CODEC_COMBINE, combine_override,
+                                  run_adaptive_stage)
+        from .codec import combine_arrays
 
         kernel = caller.ss.kernel
+        override = combine_override("CODEC_COMBINE")
         t0 = time.monotonic()
-        res = codec_combine_device(kernel.device, b1, b2, q1, q2, d1, d2,
-                                   e1, e2)
+        if T > 0 and override != "host" and not kernel.host_mode():
+            res, side = run_adaptive_stage(
+                CODEC_COMBINE, T, override,
+                lambda: codec_combine_device(kernel.device, b1, b2, q1, q2,
+                                             d1, d2, e1, e2),
+                lambda: combine_arrays(b1, b2, q1, q2, d1, d2, e1, e2))
+        else:
+            res, side = combine_arrays(b1, b2, q1, q2, d1, d2, e1,
+                                       e2), "host"
         dt = time.monotonic() - t0
         self.combine_s += dt
         self.combine_positions += T
         self.combine_largest = max(self.combine_largest, T)
-        if kernel.device.type == "cuda":
+        if kernel.device.type == "cuda" and side == "device":
             kernel.add_device_s(dt)
         cb, cq, cd, ce, both, disag = res
 

@@ -553,11 +553,22 @@ class FastDuplexCaller:
         # the device; a family of 65,536 reads or more takes K1, its u16
         # device depth/errors recounted on the host in resolve, and its
         # batch the host combine (fast_duplex.py:531-532 of the reference)
+        # The offload router may send the batch to the native f64 engine
+        # (no resident arrays: every row takes the host combine), and
+        # FGUMI_TPU_DUPLEX_COMBINE=host asks for K1 without them
+        from ..ops.kernel import HOST_DISPATCH
+        from ..ops.router import ROUTER, combine_override
+
         cd, qd, starts_m = pad_segments(cm, qm, counts_m)
+        override = combine_override("DUPLEX_COMBINE")
         resident = (opts.min_reads, opts.min_consensus_base_quality) \
-            if counts_m.max() < 65536 else None
-        dev = self.kernel.device_call_segments_wire(
-            cd, qd, starts_m, resident_thresholds=resident)
+            if counts_m.max() < 65536 and override != "host" else None
+        if ROUTER.decide_batch(self.kernel, cd.shape[0], len(multi),
+                               cd.shape[1]) == "host":
+            dev = HOST_DISPATCH
+        else:
+            dev = self.kernel.device_call_segments_wire(
+                cd, qd, starts_m, resident_thresholds=resident)
 
         def finish():
             *cols, extras = self.kernel.resolve_segments_wire(
@@ -569,7 +580,8 @@ class FastDuplexCaller:
                 seg_to_multi[multi] = np.arange(len(multi))
                 ctx = {"resident": extras["resident"],
                        "suspect": extras["suspect"],
-                       "seg_to_multi": seg_to_multi}
+                       "seg_to_multi": seg_to_multi,
+                       "override": override}
             b_m, q_m = oracle.apply_consensus_thresholds(
                 w, q_, d, opts.min_reads, opts.min_consensus_base_quality)
             tb[multi] = b_m
@@ -762,20 +774,38 @@ class FastDuplexCaller:
             cand = comb[eligible]
             host = comb[~eligible]
             if len(cand):
-                t_dev = time.monotonic()
-                ob, oq, oe = duplex_combine_device(
-                    combine_ctx["resident"], ma[eligible], mb[eligible],
-                    lens[cand])
-                # the resident width is the padded one: columns past L_max
-                # lie past every lens and are 0
-                out_b[cand] = ob[:, :L_max]
-                out_q[cand] = oq[:, :L_max]
-                out_e[cand] = oe[:, :L_max]
-                self.kernel.add_device_s(time.monotonic() - t_dev)
+                from ..ops.router import DUPLEX_COMBINE, run_adaptive_stage
+
+                def device_combine():
+                    t_dev = time.monotonic()
+                    ob, oq, oe = duplex_combine_device(
+                        combine_ctx["resident"], ma[eligible], mb[eligible],
+                        lens[cand])
+                    # the resident width is the padded one: columns past
+                    # L_max lie past every lens and are 0
+                    out_b[cand] = ob[:, :L_max]
+                    out_q[cand] = oq[:, :L_max]
+                    out_e[cand] = oe[:, :L_max]
+                    self.kernel.add_device_s(time.monotonic() - t_dev)
+
+                def host_combine():
+                    out_b[cand], out_q[cand], out_e[cand] = \
+                        combine_rows_host(tb, tq, codes2d, vstarts,
+                                          aseg[cand], bseg[cand], lens[cand])
+
+                # FGUMI_TPU_DUPLEX_COMBINE: unset/device K5, auto the
+                # router's chooser (the host side is the numpy combine)
+                _, side = run_adaptive_stage(
+                    DUPLEX_COMBINE, len(cand) * L_max,
+                    combine_ctx.get("override", "device"), device_combine,
+                    host_combine)
                 with self._combine_lock:
-                    self.combine_device_rows += len(cand)
-                    self.combine_device_largest = max(
-                        self.combine_device_largest, len(cand))
+                    if side == "device":
+                        self.combine_device_rows += len(cand)
+                        self.combine_device_largest = max(
+                            self.combine_device_largest, len(cand))
+                    else:
+                        self.combine_host_rows += len(cand)
         if combine_ctx is not None:
             # the combine is done with the stage-1 resident arrays
             combine_ctx["resident"].release()

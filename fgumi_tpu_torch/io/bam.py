@@ -721,6 +721,7 @@ class BamWriter:
         owns = isinstance(path_or_obj, str)
         self._audit = None
         self._audit_coord = False
+        self._audit_path = path_or_obj if owns else None
         if owns:
             from ..utils.atomic import open_output
 
@@ -780,29 +781,46 @@ class BamWriter:
         t0 = time.monotonic()
         walker = _BamStreamAudit(tmp_path,
                                  expect_coordinate=self._audit_coord)
-        stats = verify_members(tmp_path, sink=walker.feed)
-        walker.finish()
-        if not stats["eof_sentinel"]:
-            raise OutputIntegrityError("missing BGZF EOF sentinel",
-                                       path=tmp_path)
-        if walker.header_crc != self._audit.header_crc:
-            raise OutputIntegrityError(
-                "BAM header digest mismatch: the header block on disk is "
-                "not the header the writer encoded", path=tmp_path)
-        if walker.records != self._audit.records:
-            raise OutputIntegrityError(
-                f"record count mismatch: file holds {walker.records}, "
-                f"writer tallied {self._audit.records}", path=tmp_path)
-        if walker.content_crc != self._audit.content_crc:
-            raise OutputIntegrityError(
-                "record-stream digest mismatch: the record bytes on disk "
-                "are not (in order) the bytes the writer was handed",
-                path=tmp_path)
+        stats = {"members": 0, "data_bytes": 0, "eof_sentinel": False}
+        try:
+            stats = verify_members(tmp_path, sink=walker.feed)
+            walker.finish()
+            if not stats["eof_sentinel"]:
+                raise OutputIntegrityError("missing BGZF EOF sentinel",
+                                           path=tmp_path)
+            if walker.header_crc != self._audit.header_crc:
+                raise OutputIntegrityError(
+                    "BAM header digest mismatch: the header block on disk "
+                    "is not the header the writer encoded", path=tmp_path)
+            if walker.records != self._audit.records:
+                raise OutputIntegrityError(
+                    f"record count mismatch: file holds {walker.records}, "
+                    f"writer tallied {self._audit.records}", path=tmp_path)
+            if walker.content_crc != self._audit.content_crc:
+                raise OutputIntegrityError(
+                    "record-stream digest mismatch: the record bytes on "
+                    "disk are not (in order) the bytes the writer was "
+                    "handed", path=tmp_path)
+        except OutputIntegrityError as e:
+            self._note_audit(self._audit_path, False, stats["members"],
+                             walker.records, error=str(e))
+            raise
         dt = time.monotonic() - t0
         METRICS.observe("io.output_audit_s", dt)
+        self._note_audit(self._audit_path, True, stats["members"],
+                         walker.records)
         logging.getLogger("fgumi_tpu_torch").info(
             "output audit: %d BGZF members / %d records verified clean in "
             "%.2fs", stats["members"], walker.records, dt)
+
+    @staticmethod
+    def _note_audit(path, ok, members, records, error=None):
+        """The verdict to the result sentinel (the run report's and the
+        ``stats`` op's ``audit`` section); ops.sentinel imports no torch."""
+        from ..ops.sentinel import SENTINEL
+
+        SENTINEL.note_output_audit(path or "", ok, members=members,
+                                   records=records, error=error)
 
     def tell_virtual(self) -> int:
         """BGZF virtual offset of the next record."""

@@ -159,6 +159,10 @@ def _declare(lib):
     lib.fgumi_rebuild_aux_records.restype = lg
     lib.fgumi_rebuild_aux_records.argtypes = [p, p, p, p, lg, p, p, p, p, p,
                                               p]
+    lib.fgumi_consensus_segments.restype = lg
+    lib.fgumi_consensus_segments.argtypes = (
+        [p, p, p, lg, lg, p, p, ctypes.c_double, ci, ci] + [p] * 8
+        + [p, p, p, lg])
 
 
 def get_lib():

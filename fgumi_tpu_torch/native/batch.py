@@ -786,3 +786,51 @@ def build_codec_records(seq_addr, qual_addr, cons_err_addr,
     if total < 0:
         raise RuntimeError("codec record serialization overflow")
     return out[:total].tobytes(), rec_end
+
+
+def consensus_segments(codes2d: np.ndarray, quals2d: np.ndarray,
+                       starts: np.ndarray, correct_tab: np.ndarray,
+                       err_alt_tab: np.ndarray, g_sat: float, qual_const: int,
+                       min_phred: int, tab1_winner: np.ndarray,
+                       tab1_qual: np.ndarray, tab2_winner: np.ndarray,
+                       tab2_qual: np.ndarray):
+    """One f64 consensus pass over ragged segments (fgumi_consensus_segments;
+    the host engine of ``ops/host_kernel.py``).
+
+    Returns (winner (J,L) u8, qual (J,L) u8, depth (J,L) i32,
+    errors (J,L) i32, slow_idx int64[K], slow_ll (K,4) f64,
+    slow_obs (K,4) i32): fast/tabled positions are fully resolved; the K slow
+    positions carry their bit-exact lane sums and observation counts for the
+    caller's oracle epilogue. The slow buffers start at max(4096, J*L/8)
+    entries and grow to the returned count when a batch overflows them.
+    """
+    faults.fire("native.batch")
+    lib = get_lib()
+    J = len(starts) - 1
+    L = codes2d.shape[1] if codes2d.ndim == 2 else 0
+    codes2d = np.ascontiguousarray(codes2d, dtype=np.uint8)
+    quals2d = np.ascontiguousarray(quals2d, dtype=np.uint8)
+    starts = np.ascontiguousarray(starts, dtype=np.int64)
+    correct_tab = np.ascontiguousarray(correct_tab, dtype=np.float64)
+    err_alt_tab = np.ascontiguousarray(err_alt_tab, dtype=np.float64)
+    winner = np.empty((J, L), dtype=np.uint8)
+    qual = np.empty((J, L), dtype=np.uint8)
+    depth = np.empty((J, L), dtype=np.int32)
+    errors = np.empty((J, L), dtype=np.int32)
+    cap = max(4096, (J * L) // 8)
+    while True:
+        slow_idx = np.empty(cap, dtype=np.int64)
+        slow_ll = np.empty((cap, 4), dtype=np.float64)
+        slow_obs = np.empty((cap, 4), dtype=np.int32)
+        n_slow = lib.fgumi_consensus_segments(
+            _addr(codes2d), _addr(quals2d), _addr(starts), J, L,
+            _addr(correct_tab), _addr(err_alt_tab),
+            float(g_sat), int(qual_const), int(min_phred),
+            _addr(tab1_winner), _addr(tab1_qual), _addr(tab2_winner),
+            _addr(tab2_qual), _addr(winner), _addr(qual), _addr(depth),
+            _addr(errors), _addr(slow_idx), _addr(slow_ll), _addr(slow_obs),
+            cap)
+        if n_slow <= cap:
+            return (winner, qual, depth, errors, slow_idx[:n_slow],
+                    slow_ll[:n_slow], slow_obs[:n_slow])
+        cap = n_slow  # adversarial input: every position borderline

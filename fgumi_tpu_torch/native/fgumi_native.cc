@@ -22,6 +22,7 @@
 
 #include <algorithm>
 #include <cerrno>
+#include <cmath>
 #include <condition_variable>
 #include <cstdint>
 #include <cstdio>
@@ -2880,6 +2881,157 @@ long fgumi_rebuild_aux_records(
     out_pos[i + 1] = o;
   }
   return o;
+}
+
+}  // extern "C"
+
+extern "C" {
+
+// ---------------------------------------------------------------------------
+// f64 host consensus engine (ops/host_kernel.py; the host route of the
+// offload router, ops/router.py). Bit-exact with the f64 oracle (ops/oracle.py —
+// reference semantics: base_builder.rs:612-644,795-852) by construction:
+//
+//   * lane log-likelihoods are Kahan-accumulated in read order with the SAME
+//     IEEE add/sub sequence as oracle.accumulate_likelihoods, on the SAME
+//     host-precomputed f64 tables, so the per-position sums are bit-identical
+//     (including -inf / NaN poisoning from Q0 observations);
+//   * positions whose winner margin is provably saturated (min loser gap
+//     >= g_sat, derived so the oracle's two-trials quick path must fire)
+//     emit the winner by exact argmax and a CONSTANT quality precomputed by
+//     the oracle from ln_error_pre_umi — no transcendentals in C++ at all;
+//   * depth-1 and depth-2 positions resolve through lookup tables the
+//     Python side generated by running the oracle itself on every (base,
+//     qual[, base, qual]) pileup;
+//   * everything else (borderline margins, ties, Q0/NaN flows) is returned
+//     to Python as (flat index, 4 lane sums, 4 obs counts) and recomputed by
+//     the vectorized oracle epilogue, which IS the parity definition.
+//
+// codes/quals: dense (N, L) uint8 read rows, N = starts[J]; code 4 = N/pad
+// (skipped). correct_tab/err_alt_tab: the f64 per-qual tables (index 0..93).
+// Outputs are (J, L). Returns the number of slow positions encountered; only
+// the first slow_cap are written to slow_idx/slow_ll/slow_obs, so a return
+// value > slow_cap means the caller must retry with larger buffers.
+long fgumi_consensus_segments(
+    const uint8_t* codes, const uint8_t* quals, const int64_t* starts,
+    long J, long L, const double* correct_tab, const double* err_alt_tab,
+    double g_sat, int qual_const, int min_phred, const uint8_t* tab1_winner,
+    const uint8_t* tab1_qual, const uint8_t* tab2_winner,
+    const uint8_t* tab2_qual, uint8_t* out_winner, uint8_t* out_qual,
+    int32_t* out_depth, int32_t* out_errors, int64_t* slow_idx,
+    double* slow_ll, int32_t* slow_obs, long slow_cap) {
+  struct PosAcc {
+    double sum[4];
+    double comp[4];
+    int32_t obs[4];
+    uint8_t b0, q0, b1, q1;  // first two observations (depth-table keys)
+  };
+  std::vector<PosAcc> acc(static_cast<size_t>(L));
+  long n_slow = 0;
+  for (long j = 0; j < J; ++j) {
+    std::memset(acc.data(), 0, sizeof(PosAcc) * static_cast<size_t>(L));
+    for (int64_t r = starts[j]; r < starts[j + 1]; ++r) {
+      const uint8_t* crow = codes + r * L;
+      const uint8_t* qrow = quals + r * L;
+      for (long i = 0; i < L; ++i) {
+        const uint8_t c = crow[i];
+        if (c >= 4) continue;
+        PosAcc& a = acc[static_cast<size_t>(i)];
+        const uint8_t q = qrow[i] > 93 ? 93 : qrow[i];
+        const double vc = correct_tab[q];
+        const double ve = err_alt_tab[q];
+        for (int lane = 0; lane < 4; ++lane) {
+          // Kahan step, op-for-op oracle.accumulate_likelihoods
+          const double v = (lane == c) ? vc : ve;
+          const double y = v - a.comp[lane];
+          const double t = a.sum[lane] + y;
+          a.comp[lane] = (t - a.sum[lane]) - y;
+          a.sum[lane] = t;
+        }
+        const int32_t n = a.obs[0] + a.obs[1] + a.obs[2] + a.obs[3];
+        if (n == 0) {
+          a.b0 = c;
+          a.q0 = q;
+        } else if (n == 1) {
+          a.b1 = c;
+          a.q1 = q;
+        }
+        ++a.obs[c];
+      }
+    }
+    for (long i = 0; i < L; ++i) {
+      const PosAcc& a = acc[static_cast<size_t>(i)];
+      const int32_t depth = a.obs[0] + a.obs[1] + a.obs[2] + a.obs[3];
+      const long o = j * L + i;
+      if (depth == 0) {  // all-N column: no-observation no-call
+        out_winner[o] = 4;
+        out_qual[o] = static_cast<uint8_t>(min_phred);
+        out_depth[o] = 0;
+        out_errors[o] = 0;
+        continue;
+      }
+      if (depth == 1) {
+        const int k = a.b0 * 94 + a.q0;
+        const uint8_t w = tab1_winner[k];
+        out_winner[o] = w;
+        out_qual[o] = tab1_qual[k];
+        out_depth[o] = 1;
+        out_errors[o] = (w == a.b0) ? 0 : 1;
+        continue;
+      }
+      // q == 0 observations poison the Kahan compensation with -inf/NaN in
+      // an order-dependent way; those pairs flow through the general sums
+      // (bit-exact either way) to the oracle instead of the table.
+      if (depth == 2 && a.q0 > 0 && a.q1 > 0) {
+        const long k = static_cast<long>(a.b0 * 94 + a.q0) * 376 +
+                       (a.b1 * 94 + a.q1);
+        const uint8_t w = tab2_winner[k];
+        out_winner[o] = w;
+        out_qual[o] = tab2_qual[k];
+        out_depth[o] = 2;
+        out_errors[o] =
+            2 - ((w < 4) ? ((w == a.b0) + (w == a.b1)) : 0);
+        continue;
+      }
+      bool has_nan = false;
+      for (int lane = 0; lane < 4; ++lane) {
+        if (std::isnan(a.sum[lane])) {
+          has_nan = true;
+          break;
+        }
+      }
+      if (!has_nan) {
+        int wl = 0;
+        double mx = a.sum[0];
+        for (int lane = 1; lane < 4; ++lane) {
+          if (a.sum[lane] > mx) {  // strict >: first-occurrence argmax
+            mx = a.sum[lane];
+            wl = lane;
+          }
+        }
+        double second = -INFINITY;
+        for (int lane = 0; lane < 4; ++lane) {
+          if (lane != wl && a.sum[lane] > second) second = a.sum[lane];
+        }
+        if (std::isfinite(mx) && mx - second >= g_sat) {
+          out_winner[o] = static_cast<uint8_t>(wl);
+          out_qual[o] = static_cast<uint8_t>(qual_const);
+          out_depth[o] = depth;
+          out_errors[o] = depth - a.obs[wl];
+          continue;
+        }
+      }
+      if (n_slow < slow_cap) {
+        slow_idx[n_slow] = o;
+        for (int lane = 0; lane < 4; ++lane) {
+          slow_ll[n_slow * 4 + lane] = a.sum[lane];
+          slow_obs[n_slow * 4 + lane] = a.obs[lane];
+        }
+      }
+      ++n_slow;
+    }
+  }
+  return n_slow;
 }
 
 }  // extern "C"

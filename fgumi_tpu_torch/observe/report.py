@@ -9,9 +9,10 @@ processed and the exit status.
 
 The schema is the JAX package's (:data:`SCHEMA_VERSION` 7, the same
 sections) and is validated structurally by :func:`validate_report`. The
-sections of components the port does not have (the router, breaker,
-sentinel, mesh, ``--xla-profile`` and deployment profiles) are looked up
-by the port's own module names and stay absent.
+router's, breaker's and sentinel's sections are looked up by the port's
+own module names (absent while their module is not loaded or idle); those
+of components the port does not have (the mesh, ``--xla-profile`` and
+deployment profiles) stay absent.
 """
 
 import json
@@ -308,13 +309,14 @@ def build_report(command: str, argv, started_unix: float, wall_s: float,
         if snap and snap.get("dp") == m_dp:
             mesh_sec["platform"] = snap.get("platform")
         dev["mesh"] = mesh_sec
-    # the offload router's state (none in the port yet)
+    # the offload router's state (ops/router.py), whenever batches were
+    # routed or its EWMAs were seeded from a snapshot
     router = sys.modules.get("fgumi_tpu_torch.ops.router")
     if router is not None and (dev.get("route_device")
                                or dev.get("route_host")
                                or router.ROUTER.prior_source != "cold"):
         dev["routing"] = router.ROUTER.snapshot()
-    # the device circuit breaker (none in the port yet)
+    # the device circuit breaker (ops/breaker.py)
     breaker = sys.modules.get("fgumi_tpu_torch.ops.breaker")
     if breaker is not None:
         bsnap = breaker.BREAKER.snapshot()

@@ -97,10 +97,45 @@ telemetry scope (``observe/scope.py``).
 Device weather: every :func:`device_retry_call` feeds the process's
 circuit breaker (``ops/breaker.py``): a clean call a success, a retry
 budget that ran out a transient failure. :func:`device_canary` is the
-serve daemon's health round trip through K7 (``ops/canary.py``).
+serve daemon's health round trip through K7 (``ops/canary.py``); a clean
+one feeds the offload router's link estimate.
+
+The feeder and dispatch deadlines (the reference's ``DeviceFeeder``,
+``DispatchTicket`` and ``dispatch_deadline_s``): every consensus
+dispatch's upload and launch run on one feeder thread
+(:data:`DEVICE_FEEDER`), in submission order, with at most
+``FGUMI_TPU_FEEDER_DEPTH`` (default :data:`FEEDER_DEPTH`, at least 2)
+dispatches launched and unresolved within ``FGUMI_TPU_FEEDER_BYTES``
+(default 256 MiB) of uploads. A handle dropped unresolved (a runner's
+error path) gives its slot back when it is collected.
+On the card the feeder also records an event after the launch. A resolve
+waits for the launch and polls that event under the dispatch's deadline
+(``FGUMI_TPU_DISPATCH_DEADLINE_S``: ``CEILING`` or ``FLOOR:CEILING``,
+default 30:300 s; the cost model's predicted wall times
+``FGUMI_TPU_DEADLINE_FACTOR``, default 20, clamped; ``0``/``off``
+disables), so the thread that watches the deadline is never the one that
+is stuck, whether the launch hangs on the host or the card never signals
+its event; only then does it copy the results to the host, on a stream
+of its own, so the copy waits for no later launch. A dispatch past its
+deadline is abandoned (its late result is
+dropped when it comes), counted (``deadline_fallbacks`` in DeviceStats,
+the JAX package's key: here it counts abandoned dispatches), fed to the
+breaker, and raised as :class:`DeadlineExceeded`: the command exits 3
+(an injected hang) or 1 and publishes nothing; the JAX package would
+finish the batch on its host engine.
+
+Routing (``ops/router.py``): :func:`route_and_call_segments` and the
+engines ask ``ROUTER.decide_batch``; a host batch runs on the native f64
+engine (:meth:`ConsensusKernel.host_call_segments`). The result sentinel
+(``ops/sentinel.py``) taps every resolved wire dispatch, and the
+cross-job coalescer (``ops/coalesce.py``) may merge plain K1/K1-p2
+dispatches of concurrent serve jobs into one launch.
 """
 
+import collections
 import contextlib
+import contextvars
+import gc
 import logging
 import os
 import threading
@@ -127,6 +162,10 @@ _RESIDENTS_LOCK = threading.Lock()
 #: pinned staging buffers an upload slot holds (uploads of one slot that
 #: may be in flight at once before a dispatch waits for the oldest)
 STAGING_DEPTH = 4
+
+#: consensus dispatches launched and unresolved at once, by default
+#: (``FGUMI_TPU_FEEDER_DEPTH``; the stage runner holds fewer)
+FEEDER_DEPTH = 8
 
 #: consensus dispatches of every command in this process that are launched
 #: and not yet fetched (a handle dropped unfetched, by a failed command,
@@ -212,6 +251,14 @@ class DeviceStats:
             # resilience: retried attempts and out-of-memory halvings
             self.retries = 0
             self.batch_splits = 0
+            # dispatches abandoned at their deadline (the JAX package's
+            # key; the port finishes none of them on the host)
+            self.deadline_fallbacks = 0
+            # the offload router's decisions (ops/router.py)
+            self.route_device = 0
+            self.route_host = 0
+            # the feeder queue's high-water mark
+            self.feeder_queue_peak = 0
             self.timeline = []
             self._t0 = time.monotonic()
 
@@ -243,6 +290,44 @@ class DeviceStats:
                     down_bytes=int(down_bytes),
                     fetch_wait_s=round(wait_s, 4))
 
+    def note_upload(self, slot: int, upload_s: float):
+        """A dispatch's upload + launch wall on the feeder thread."""
+        with self._lock:
+            if 0 <= slot < len(self.timeline):
+                self.timeline[slot]["upload_s"] = round(upload_s, 6)
+
+    def note_pred(self, slot: int, pred_s: float):
+        """The cost model's predicted dispatch wall (ops/router.py)."""
+        with self._lock:
+            if 0 <= slot < len(self.timeline):
+                self.timeline[slot]["pred_s"] = round(pred_s, 4)
+
+    def timeline_entry(self, slot: int):
+        """A copy of one timeline slot, or None past the cap."""
+        with self._lock:
+            if 0 <= slot < len(self.timeline):
+                return dict(self.timeline[slot])
+            return None
+
+    def in_flight_count(self) -> int:
+        with self._lock:
+            return self.in_flight
+
+    def add_route(self, side: str):
+        with self._lock:
+            if side == "device":
+                self.route_device += 1
+            else:
+                self.route_host += 1
+
+    def add_deadline_abandon(self):
+        with self._lock:
+            self.deadline_fallbacks += 1
+
+    def note_queue_depth(self, depth: int):
+        with self._lock:
+            self.feeder_queue_peak = max(self.feeder_queue_peak, depth)
+
     def add_retry(self):
         with self._lock:
             self.retries += 1
@@ -270,6 +355,13 @@ class DeviceStats:
                 out["dispatch_retries"] = self.retries
             if self.batch_splits:
                 out["batch_splits"] = self.batch_splits
+            if self.deadline_fallbacks:
+                out["deadline_fallbacks"] = self.deadline_fallbacks
+            if self.route_device or self.route_host:
+                out["route_device"] = self.route_device
+                out["route_host"] = self.route_host
+            if self.feeder_queue_peak:
+                out["feeder_queue_depth"] = self.feeder_queue_peak
             return out
 
     def timeline_snapshot(self) -> list:
@@ -283,7 +375,8 @@ class DeviceStats:
             state = {k: getattr(other, k) for k in (
                 "dispatches", "fetch_wait_s", "bytes_uploaded",
                 "bytes_fetched", "in_flight", "in_flight_peak", "retries",
-                "batch_splits", "_t0")}
+                "batch_splits", "deadline_fallbacks", "route_device",
+                "route_host", "feeder_queue_peak", "_t0")}
             state["device_types"] = set(other.device_types)
             state["timeline"] = [dict(t) for t in other.timeline]
         with self._lock:
@@ -347,6 +440,21 @@ def _observe_dispatch(wall_s: float, fetch_s: float, up: int, down: int):
     METRICS.observe("device.dispatch.wall_s", wall_s)
     FLIGHT.note("device.dispatch", wall_s=round(wall_s, 4), up_bytes=up,
                 down_bytes=down)
+
+
+def _observe_router(handle, down: int):
+    """Feed one resolved dispatch's measured pieces to the offload cost
+    model: its upload + launch wall on the feeder and its fetch wait (the
+    dispatch's serial occupancy; queue time is priced by the model's
+    in-flight term)."""
+    from .router import ROUTER
+
+    tl = DEVICE_STATS.timeline_entry(handle.slot)
+    if tl is None:
+        return
+    up_s = tl.get("upload_s", 0.0)
+    wait_s = tl.get("fetch_wait_s", 0.0)
+    ROUTER.observe_device(handle.up, down, up_s, wait_s, up_s + wait_s)
 
 
 def _dispatch_span(what: str, work: int, attempt: int = 0):
@@ -460,25 +568,481 @@ def device_retry_call(fn, what: str, launches: int = 1):
         return out
 
 
+# ------------------------------------------------- deadlines and the feeder
+
+class DeadlineExceeded(RuntimeError):
+    """A dispatch overran its deadline and was abandoned. Raised by the
+    deadline-bounded waits of the resolve, never by the device. The JAX
+    package finishes such a batch on its host engine; the port does not:
+    the command exits 3 when an injected fault caused the overrun
+    (``injected``), 1 otherwise, and publishes nothing."""
+
+    def __init__(self, msg: str, injected: bool = False):
+        super().__init__(msg)
+        self.injected = injected
+
+
+def _deadline_bounds():
+    """(floor_s, ceiling_s) from ``FGUMI_TPU_DISPATCH_DEADLINE_S``, or
+    (None, None) when dispatch deadlines are disabled. Accepted forms:
+    ``""`` (defaults 30:300), ``"CEILING"``, ``"FLOOR:CEILING"``, or
+    ``0``/``off``/``none``/``inf`` to disable (the JAX package's parsing).
+    The floor absorbs a first dispatch's kernel build; the ceiling bounds
+    what a wedged card can cost when the cost model has no prediction."""
+    spec = os.environ.get("FGUMI_TPU_DISPATCH_DEADLINE_S", "").strip().lower()
+    if spec in ("off", "none", "inf"):
+        return None, None
+    floor, ceil = 30.0, 300.0
+    if spec:
+        try:
+            parts = [float(p) for p in spec.split(":", 1)]
+        except ValueError:
+            log.warning("FGUMI_TPU_DISPATCH_DEADLINE_S=%r is not "
+                        "S or FLOOR:CEILING; using the default", spec)
+            return floor, ceil
+        if len(parts) == 1:
+            ceil = parts[0]
+            floor = min(floor, ceil)
+        else:
+            floor, ceil = parts
+        if ceil <= 0:
+            return None, None
+        floor = min(max(floor, 0.01), ceil)
+    return floor, ceil
+
+
+def dispatch_deadline_s(pred_s=None):
+    """Deadline (seconds) of one dispatch's resolve wait, or None when
+    disabled: the router's predicted dispatch wall times
+    ``FGUMI_TPU_DEADLINE_FACTOR`` (default 20), clamped to the floor and
+    ceiling; with no prediction the ceiling applies."""
+    floor, ceil = _deadline_bounds()
+    if ceil is None:
+        return None
+    if pred_s is None or pred_s <= 0:
+        return ceil
+    try:
+        factor = float(os.environ.get("FGUMI_TPU_DEADLINE_FACTOR", "20"))
+    except ValueError:
+        factor = 20.0
+    return min(max(pred_s * factor, floor), ceil)
+
+
+#: the feeder's gate holds a launch at most this long before it proceeds
+GATE_TIMEOUT_S = 60.0
+
+
+class DispatchTicket:
+    """The future of one launch submitted to the feeder: :meth:`wait`
+    returns the launch's result or re-raises its error. A ticket whose
+    wait timed out goes to :meth:`DeviceFeeder.abandon`: its late result
+    is dropped and its slot reclaimed when (if) the launch returns."""
+
+    __slots__ = ("_started", "_event", "_result", "_exc", "upload_bytes",
+                 "t_start", "_released", "_abandoned", "_dropped")
+
+    def __init__(self, upload_bytes: int = 0):
+        self._started = threading.Event()
+        self._event = threading.Event()
+        self._result = None
+        self._exc = None
+        self.upload_bytes = int(upload_bytes)
+        self.t_start = None
+        self._released = False
+        self._abandoned = False
+        self._dropped = False
+
+    def done(self) -> bool:
+        return self._event.is_set()
+
+    def _set(self, result=None, exc=None):
+        self._result = result
+        self._exc = exc
+        self._event.set()
+
+    def wait(self, timeout: float = None):
+        """The launch's result, or raise its error. ``timeout`` seconds
+        (None: forever) count from the launch's start on the feeder; the
+        wait before it (the gate, launches ahead) is bounded by
+        :data:`GATE_TIMEOUT_S` more. On expiry raises
+        :class:`DeadlineExceeded` without abandoning (the caller
+        decides)."""
+        if timeout is None:
+            self._event.wait()
+        else:
+            if not self._started.wait(GATE_TIMEOUT_S + timeout):
+                raise DeadlineExceeded(
+                    f"device dispatch did not start within "
+                    f"{GATE_TIMEOUT_S + timeout:.1f}s")
+            left = timeout - (time.monotonic() - self.t_start)
+            if not self._event.wait(max(left, 0.0)):
+                raise DeadlineExceeded(
+                    f"device dispatch did not complete within "
+                    f"{timeout:.1f}s")
+        if self._exc is not None:
+            raise self._exc
+        return self._result
+
+
+class DeviceFeeder:
+    """The uploads and launches of every consensus dispatch, on one
+    background thread, in submission order (the reference's
+    ``DeviceFeeder``). Up to ``FGUMI_TPU_FEEDER_DEPTH`` dispatches (default
+    :data:`FEEDER_DEPTH`, at least 2) may be launched and unresolved at
+    once, within ``FGUMI_TPU_FEEDER_BYTES`` (default 256 MiB, at least 1
+    MiB) of uploads; the next launch waits at that gate until one resolves
+    (at most :data:`GATE_TIMEOUT_S`, then it proceeds with a warning: a
+    caller that holds more unresolved dispatches than the depth, or
+    dropped one unresolved, must not freeze the process). The submitter
+    waits for its own launch under the dispatch's deadline, so the launch
+    runs here while the thread that watches the deadline is the
+    submitter. The submitter's context travels with its work item, so
+    spans, retries and counters raised on the feeder thread land in the
+    submitting command's telemetry scope.
+
+    Resolve sites call :meth:`mark_resolved` (or :meth:`abandon` past a
+    deadline) exactly once a dispatch; both are idempotent. A handle that
+    is dropped unresolved (a runner's error path drops the dispatches it
+    had pending) reaches :meth:`release_dropped` through its finalizer,
+    so a failed command leaves no slot or byte of the process's gate
+    behind."""
+
+    def __init__(self):
+        self._q = collections.deque()
+        self._cv = threading.Condition()
+        self._thread = None
+        self._exit = False
+        self._active = False
+        self._inflight = 0
+        self._inflight_bytes = 0
+        self._depth = None
+        self._budget = None
+        # tickets of handles collected unresolved (appended by finalizers,
+        # which take no lock; released under the lock)
+        self._dropped = collections.deque()
+
+    def _config(self):
+        with self._cv:
+            if self._depth is None:
+                try:
+                    depth = max(int(os.environ.get(
+                        "FGUMI_TPU_FEEDER_DEPTH", str(FEEDER_DEPTH))), 2)
+                except ValueError:
+                    depth = FEEDER_DEPTH
+                try:
+                    budget = max(int(os.environ.get(
+                        "FGUMI_TPU_FEEDER_BYTES", str(256 << 20))), 1 << 20)
+                except ValueError:
+                    budget = 256 << 20
+                self._depth, self._budget = depth, budget
+            return self._depth, self._budget
+
+    @property
+    def depth(self) -> int:
+        return self._config()[0]
+
+    def submit(self, fn, upload_bytes: int = 0) -> DispatchTicket:
+        """Run ``fn()`` (upload + launch) on the feeder thread, in the
+        submitter's context; returns its ticket at once."""
+        ticket = DispatchTicket(upload_bytes)
+        ctx = contextvars.copy_context()
+        with self._cv:
+            if self._thread is None or not self._thread.is_alive():
+                self._exit = False
+                self._thread = threading.Thread(
+                    target=self._loop, name="fgumi-device-feeder",
+                    daemon=True)
+                self._thread.start()
+            self._reap_dropped_locked()
+            self._q.append((fn, ctx, ticket))
+            depth_now = len(self._q) + (1 if self._active else 0)
+            self._cv.notify_all()
+        DEVICE_STATS.note_queue_depth(depth_now)
+        return ticket
+
+    def mark_resolved(self, ticket: DispatchTicket):
+        """Release a dispatch's slot and bytes (idempotent)."""
+        with self._cv:
+            self._reap_dropped_locked()
+            if ticket._released:
+                return
+            ticket._released = True
+            self._inflight -= 1
+            self._inflight_bytes -= ticket.upload_bytes
+            self._cv.notify_all()
+
+    def release_dropped(self, ticket: DispatchTicket):
+        """The finalizer of a dispatch handle: give an unresolved
+        ticket's slot and bytes back. It runs wherever the collector runs,
+        so it only queues the ticket; the next submit, resolve or gate
+        check releases it under the lock."""
+        self._dropped.append(ticket)
+
+    def _reap_dropped_locked(self):
+        while self._dropped:
+            ticket = self._dropped.popleft()
+            if ticket._released or ticket._abandoned:
+                continue  # resolved, or reclaimed when its launch returns
+            if not ticket._event.is_set():
+                # queued (the loop skips it) or launching (the loop
+                # reclaims its slot when the launch returns)
+                ticket._dropped = True
+                continue
+            ticket._released = True
+            self._inflight -= 1
+            self._inflight_bytes -= ticket.upload_bytes
+            self._cv.notify_all()
+
+    def abandon(self, ticket: DispatchTicket):
+        """Give up on a dispatch past its deadline: the caller walks away
+        now; a late result is dropped and the slot reclaimed when the
+        launch returns (here, if it already has)."""
+        from ..observe.flight import FLIGHT
+
+        with self._cv:
+            ticket._abandoned = True
+            completed = ticket._event.is_set()
+            if completed:
+                ticket._result = None
+        FLIGHT.note("device.feeder.abandon",
+                    upload_bytes=ticket.upload_bytes,
+                    completed_late=completed)
+        if completed:
+            self.mark_resolved(ticket)
+
+    def drain(self, timeout: float = None) -> bool:
+        """Run the queue dry and let the thread exit (the serve daemon's
+        drain). True when it emptied within ``timeout`` seconds. A later
+        submit starts a fresh thread."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        with self._cv:
+            self._exit = True
+            self._cv.notify_all()
+            while self._q or self._active:
+                left = None if deadline is None \
+                    else deadline - time.monotonic()
+                if left is not None and left <= 0:
+                    return False
+                self._cv.wait(min(left, 0.5) if left is not None else 0.5)
+        return True
+
+    def _gated_locked(self, depth: int, budget: int) -> bool:
+        head = self._q[0][2]
+        return self._inflight >= depth or (
+            self._inflight > 0
+            and self._inflight_bytes + head.upload_bytes > budget)
+
+    def _loop(self):
+        while True:
+            with self._cv:
+                self._active = False
+                self._cv.notify_all()
+                while not self._q:
+                    if self._exit:
+                        self._thread = None
+                        return
+                    self._cv.wait()
+                depth, budget = self._config()
+                gate_until = None
+                collected = False
+                while True:
+                    self._reap_dropped_locked()
+                    if not (self._q and not self._exit
+                            and self._gated_locked(depth, budget)):
+                        break
+                    now = time.monotonic()
+                    if gate_until is None:
+                        gate_until = now + GATE_TIMEOUT_S
+                    elif not collected and now >= gate_until \
+                            - GATE_TIMEOUT_S + 1.0:
+                        # held a second: handles dropped in reference
+                        # cycles (an error's traceback) are finalized only
+                        # by the cycle collector
+                        collected = True
+                        self._cv.release()
+                        try:
+                            gc.collect()
+                        finally:
+                            self._cv.acquire()
+                        continue
+                    if now >= gate_until:
+                        log.warning(
+                            "device feeder gate timed out with %d "
+                            "dispatch(es) unresolved; proceeding",
+                            self._inflight)
+                        break
+                    self._cv.wait(min(gate_until - now, 1.0))
+                fn, ctx, ticket = self._q.popleft()
+                if ticket._abandoned or ticket._dropped:
+                    # given up while still queued: never start it
+                    ticket._released = True
+                    ticket.t_start = time.monotonic()
+                    ticket._started.set()
+                    ticket._set(exc=DeadlineExceeded(
+                        "dispatch abandoned before it started"))
+                    continue
+                self._inflight += 1
+                self._inflight_bytes += ticket.upload_bytes
+                self._active = True
+                ticket.t_start = time.monotonic()
+                ticket._started.set()
+            try:
+                result, exc = ctx.run(fn), None
+            except BaseException as e:  # noqa: BLE001 - relayed to waiter
+                # an out-of-memory is kept without its traceback: the
+                # frames would keep the attempt's device tensors alive
+                # while the halves allocate
+                result, exc = None, (e.with_traceback(None) if _is_oom(e)
+                                     else e)
+            with self._cv:
+                late = ticket._abandoned or ticket._dropped
+                ticket._set(result=None if late else result, exc=exc)
+            del result
+            if late:
+                if ticket._abandoned:
+                    log.warning("device dispatch completed after its "
+                                "deadline; late result dropped")
+                self.mark_resolved(ticket)
+
+
+#: the process's feeder (every command and serve job shares the card)
+DEVICE_FEEDER = DeviceFeeder()
+
+
+def default_max_inflight() -> int:
+    """The hybrid route's backlog cap (``FGUMI_TPU_MAX_INFLIGHT``, ``0`` =
+    always host) or, unset, the feeder depth + 1, as on the JAX package."""
+    env_cap = os.environ.get("FGUMI_TPU_MAX_INFLIGHT", "").strip()
+    if env_cap:
+        try:
+            return int(env_cap)
+        except ValueError:
+            log.warning("FGUMI_TPU_MAX_INFLIGHT=%r is not an integer; "
+                        "using the default", env_cap)
+    return DEVICE_FEEDER.depth + 1
+
+
+_FETCH_STREAMS = {}
+_FETCH_LOCK = threading.Lock()
+
+
+def _fetch_stream(device):
+    """The side stream a device's result copies run on: a copy queued on
+    the launch stream would also wait for every launch made since."""
+    with _FETCH_LOCK:
+        stream = _FETCH_STREAMS.get(device)
+        if stream is None:
+            stream = _FETCH_STREAMS[device] = torch.cuda.Stream(device)
+        return stream
+
+
+def fetch_results(out, event, n_fetch: int, deadline_at):
+    """The host arrays of a launch's first ``n_fetch`` outputs: on the card
+    copied once the event recorded after the launch completes (polled
+    until ``deadline_at``, monotonic; None past it), on the CPU the
+    outputs themselves. The copy goes to pageable memory, as a plain
+    ``.cpu()`` does: a fresh pinned buffer a dispatch costs more to
+    allocate than the copy saves."""
+    if event is None:
+        return [t.cpu().numpy() for t in out[:n_fetch]]
+    if not _poll_event(event, deadline_at):
+        return None
+    with torch.cuda.stream(_fetch_stream(out[0].device)):
+        return [t.cpu().numpy() for t in out[:n_fetch]]
+
+
+def _poll_event(event, deadline_at):
+    """Wait for a CUDA event by polling (the waiting thread never blocks
+    in the driver); False when ``deadline_at`` (monotonic) passes first."""
+    if deadline_at is None:
+        event.synchronize()
+        return True
+    delay = 2e-5
+    while not event.query():
+        if time.monotonic() >= deadline_at:
+            return False
+        time.sleep(delay)
+        delay = min(delay * 2, 1e-3)
+    return True
+
+
 class Dispatch:
-    """One consensus dispatch in flight: the kernel's device outputs, the
-    host clock when its upload began, and its :data:`DEVICE_STATS`
-    timeline slot; ``what`` names its kernel. A dispatch that ran out of
-    device memory holds the error (``failure``, nothing in flight) and the
+    """One launched consensus dispatch: its feeder ticket, the launch's
+    device outputs (``out``), how many of them a resolve fetches
+    (``n_fetch``), on the card the event recorded after the launch, the
+    kernel it ran (``what``), the host clock of its submission,
+    its :data:`DEVICE_STATS` timeline slot and upload bytes, the cost
+    model's predicted wall (its deadline) and, for K1-f, its filter
+    parameters (the sentinel's audit). A dispatch that ran out of device
+    memory holds the error instead (``failure``, nothing in flight) and the
     K1-r thresholds it was launched with, for the split at resolve time."""
 
-    __slots__ = ("out", "what", "t0", "slot", "up", "failure", "thresholds",
-                 "__weakref__")
+    __slots__ = ("ticket", "out", "event", "what", "t0", "slot",
+                 "up", "failure", "thresholds", "n_fetch", "pred_s",
+                 "filter_ctx", "abandoned", "_closed", "__weakref__")
 
-    def __init__(self, out, what: str, t0: float, slot: int, up: int,
-                 failure=None, thresholds=None):
+    def __init__(self, ticket, out, what: str, t0: float, slot: int,
+                 up: int, failure=None, thresholds=None, n_fetch: int = 4,
+                 pred_s=None, event=None):
+        self.ticket = ticket
         self.out = out
+        self.event = event
         self.what = what
         self.t0 = t0
         self.slot = slot
         self.up = up
         self.failure = failure
         self.thresholds = thresholds
+        self.n_fetch = n_fetch
+        self.pred_s = pred_s
+        self.filter_ctx = None
+        self.abandoned = False
+        self._closed = failure is not None
+
+    def close(self, down: int, wait_s: float):
+        """End the dispatch's accounting once: its DEVICE_STATS slot, the
+        in-flight set, and (unless abandoned) its feeder slot."""
+        if self._closed:
+            return
+        self._closed = True
+        DEVICE_STATS.end(self.slot, down, wait_s)
+        with _LIVE_LOCK:
+            _LIVE_DISPATCHES.discard(self)
+        if not self.abandoned:
+            DEVICE_FEEDER.mark_resolved(self.ticket)
+
+
+def _abandon(ticket, what: str, deadline: float) -> "DeadlineExceeded":
+    """Give up on a dispatch past its deadline: the feeder drops its late
+    result, the breaker records a wedge, the flight recorder freezes a
+    black box. Returns the :class:`DeadlineExceeded` to raise."""
+    from ..observe.flight import FLIGHT
+    from ..utils import faults
+
+    DEVICE_FEEDER.abandon(ticket)
+    DEVICE_STATS.add_deadline_abandon()
+    BREAKER.record_deadline_overrun()
+    FLIGHT.note("device.deadline_fallback", what=what,
+                deadline_s=round(deadline, 3))
+    FLIGHT.dump("dispatch-deadline", what=what)
+    return DeadlineExceeded(
+        f"device {what} dispatch did not complete within {deadline:.1f}s "
+        "(FGUMI_TPU_DISPATCH_DEADLINE_S); abandoned",
+        injected=faults.hang_fired())
+
+
+#: stands in for a dispatch handle where the router sent a batch to the
+#: native f64 host engine: its resolve runs the engine on the rows
+HOST_DISPATCH = ("host-dispatch",)
+
+
+def _last_prediction():
+    """The cost model's predicted dispatch wall of this thread's latest
+    routing decision, or None (ops/router.py)."""
+    from .router import ROUTER
+
+    pred = ROUTER.last_prediction()
+    return pred[0] if pred else None
 
 
 class _Staging:
@@ -564,6 +1128,10 @@ class ConsensusKernel:
         self.stats_bytes = 0            # stats rows fetched
         self.gathered_rows = 0          # survivor + suspect rows gathered
         self.batch_shapes = []          # (rows N, columns L, segments J)
+        # the router's host route (ops/host_kernel.py)
+        self._host_engine = None
+        self.host_batches = 0
+        self._coalesce_key_cache = None
 
     # ------------------------------------------------------------ dispatch
 
@@ -618,34 +1186,91 @@ class ConsensusKernel:
             entry.event = event
         return out
 
-    def _begin(self, what: str, t0: float, out, *host) -> Dispatch:
-        """The handle of a ``what`` dispatch whose upload began at ``t0``
-        (the host tensors ``host`` went up)."""
-        up = sum(t.numel() * t.element_size() for t in host)
-        handle = Dispatch(out, what, t0, DEVICE_STATS.begin(self.device, up),
-                          up)
-        with _LIVE_LOCK:
-            _LIVE_DISPATCHES.add(handle)
-        return handle
-
-    def _fetch(self, handle: Dispatch, tensors):
-        """Fetch ``tensors`` of ``handle``'s dispatch to host numpy arrays
-        and close its accounting: its span (upload to fetched) goes into
-        ``device_s``, its fetch wait into :data:`DEVICE_STATS`."""
+    def _await(self, handle: Dispatch):
+        """Wait for ``handle``'s results under its deadline (on the card:
+        poll the event recorded after their copy, never blocking in the
+        driver) and close its accounting: (device outputs, host numpy
+        arrays of the first ``n_fetch``). The span from submission to the
+        fetched result goes into ``device_s``, the wait into
+        :data:`DEVICE_STATS`. Raises a CUDA error at the fetch as a
+        :class:`DeviceFailure`, or :class:`DeadlineExceeded` (the dispatch
+        abandoned)."""
+        deadline = dispatch_deadline_s(handle.pred_s)
         t_fetch = time.monotonic()
-        with span("device.fetch") as sp, _fetch_failure(handle.what):
-            host = [t.cpu().numpy() for t in tensors]
-            down = sum(a.nbytes for a in host)
-            sp.set(bytes=down)
+        down = 0
+        try:
+            with span("device.fetch") as sp, _fetch_failure(handle.what):
+                host = fetch_results(
+                    handle.out, handle.event, handle.n_fetch,
+                    None if deadline is None else t_fetch + deadline)
+                if host is None:
+                    handle.abandoned = True
+                    raise _abandon(handle.ticket, handle.what, deadline)
+                down = sum(a.nbytes for a in host)
+                sp.set(bytes=down)
+        finally:
+            handle.close(down, time.monotonic() - t_fetch)
         now = time.monotonic()
         with self._lock:
             self.device_s += now - handle.t0
             self.batches += 1
-        DEVICE_STATS.end(handle.slot, down, now - t_fetch)
-        with _LIVE_LOCK:
-            _LIVE_DISPATCHES.discard(handle)
         _observe_dispatch(now - handle.t0, now - t_fetch, handle.up, down)
-        return host
+        _observe_router(handle, down)
+        out = handle.out
+        handle.out = handle.event = None
+        return out, host
+
+    # ------------------------------------------------------------ routing
+
+    def host_mode(self) -> bool:
+        """Every consensus batch on the native f64 engine
+        (``FGUMI_TPU_ROUTE=host`` or ``FGUMI_TPU_HOST_ENGINE=1``)."""
+        from .router import route_mode
+
+        return route_mode() == "host"
+
+    def _host(self):
+        """The native f64 host engine of these tables (built once)."""
+        with self._lock:
+            if self._host_engine is None:
+                from .host_kernel import HostConsensusEngine
+
+                self._host_engine = HostConsensusEngine(self.tables)
+            return self._host_engine
+
+    def host_call_segments(self, codes2d: np.ndarray, quals2d: np.ndarray,
+                           starts) -> tuple:
+        """One segment batch on the native f64 host engine (the router's
+        host route): (winner, qual, depth, errors) (J, L), bit-exact with
+        the oracle; its rate feeds the router's host EWMA."""
+        from .router import ROUTER
+
+        t0 = time.monotonic()
+        w, q, d, e, n_slow = self._host().call_segments_counted(
+            codes2d, quals2d, np.asarray(starts, dtype=np.int64))
+        ROUTER.observe_host(codes2d.size, time.monotonic() - t0)
+        with self._lock:
+            self.total_positions += w.size
+            self.fallback_positions += n_slow
+            self.host_batches += 1
+        return w, q, d, e
+
+    def _coalesce_key(self) -> str:
+        """Fingerprint of the tables a merged dispatch must share (the
+        cross-job coalescer, ops/coalesce.py): the f32 quality tables and
+        the pre-UMI prior, so warm serve jobs with the same error rates
+        merge across kernel objects."""
+        if self._coalesce_key_cache is None:
+            import hashlib
+
+            h = hashlib.blake2b(digest_size=16)
+            for a in (self.tables.adjusted_correct,
+                      self.tables.adjusted_error_per_alt):
+                h.update(np.asarray(a, dtype=np.float32).tobytes())
+            h.update(self._pre.tobytes())
+            h.update(str(self.device).encode())
+            self._coalesce_key_cache = h.hexdigest()
+        return self._coalesce_key_cache
 
     def _device_tables(self):
         with self._lock:
@@ -663,27 +1288,52 @@ class ConsensusKernel:
         """Launch the full-column consensus of a padded (N, L) row batch
         (L % 4 == 0; family f = rows [starts[f], starts[f+1])). Builds the
         1-byte wire for K1 — or the packed2 layout for K1-p2 when the batch
-        has > 63 distinct quals — and returns the device outputs (qs, wp,
-        depth, errors) for :meth:`resolve_segments_wire`.
+        has > 63 distinct quals — and returns the handle for
+        :meth:`resolve_segments_wire`.
 
         ``resident_thresholds=(min_reads, min_qual)`` launches K1-r
         instead of K1 on the wire layout: the outputs then also hold the
         duplex combine's resident (tb, tq, obs). The packed2 route has no
         resident variant and ignores it (its rows take the host combine).
         Callers ask for it only when every family has fewer than 65,536
-        reads (the u16 counts are exact)."""
+        reads (the u16 counts are exact). A plain dispatch may be merged
+        with other serve jobs' (ops/coalesce.py): its handle is then a
+        ``CoalescedTicket``, resolved through the same call."""
+        with self._lock:
+            self.batch_shapes.append((*codes2d.shape, len(starts) - 1))
+        if resident_thresholds is None:
+            from .coalesce import COALESCER
+
+            merged = COALESCER.maybe_submit(self, codes2d, quals2d, starts)
+            if merged is not None:
+                return merged
+        return self._dispatch(*self._wire_plan(codes2d, quals2d, starts,
+                                               resident_thresholds))
+
+    def _wire_plan(self, codes2d, quals2d, starts, resident_thresholds=None,
+                   fault_point=None):
+        """The launch of one wire dispatch, built but not submitted:
+        (launch closure, kernel name, J, host tensors uploaded, K1-r
+        thresholds). ``fault_point``: a fault point fired inside the
+        launch (the coalescer's ``serve.coalesce``)."""
         J = len(starts) - 1
         codes_t = torch.from_numpy(codes2d)
         quals_t = torch.from_numpy(quals2d)
         starts_t = torch.from_numpy(np.asarray(starts, dtype=np.int32))
-        with self._lock:
-            self.batch_shapes.append((*codes2d.shape, J))
+
+        def fire():
+            if fault_point is not None:
+                from ..utils import faults
+
+                faults.fire(fault_point)
+
         w = W.build_wire(codes_t, quals_t, self._delta94)
         if w is not None:
             wire, dict64 = w
             what = "K1" if resident_thresholds is None else "K1-r"
 
             def launch():
+                fire()
                 args = (self._to_device(wire, "wire"),
                         self._to_device(starts_t, "starts"),
                         self._to_device(dict64, "dict"), self._pre)
@@ -692,37 +1342,78 @@ class ConsensusKernel:
                         *args, *resident_thresholds)
                 return cuda_kernel.consensus_wire_full(*args)
 
-            return self._dispatch(launch, what, J, (wire, starts_t, dict64),
-                                  resident_thresholds)
+            return (launch, what, J, (wire, starts_t, dict64),
+                    resident_thresholds)
         cp, qsent = W.pack_codes2(codes_t, quals_t)
 
         def launch_packed2():
+            fire()
             ct, et = self._device_tables()
             return cuda_kernel.consensus_wire_packed2(
                 self._to_device(cp, "wire"), self._to_device(qsent, "quals"),
                 self._to_device(starts_t, "starts"), ct, et, self._pre)
 
-        return self._dispatch(launch_packed2, "K1-p2", J,
-                              (cp, qsent, starts_t), resident_thresholds)
+        return (launch_packed2, "K1-p2", J, (cp, qsent, starts_t),
+                resident_thresholds)
 
     def _dispatch(self, launch, what: str, J: int, host,
-                  thresholds=None) -> Dispatch:
-        """One dispatch of ``J`` families through :func:`device_retry_call`
-        (a batch of no families launches nothing: no span either). An
-        out-of-memory is kept in the returned handle, which its resolve
-        answers by halving the batch (where the reference's surfaces)."""
+                  thresholds=None, n_fetch: int = 4) -> Dispatch:
+        """One dispatch of ``J`` families: its launch runs on the feeder
+        (:meth:`feeder_run`) while this thread waits for it under the
+        dispatch's deadline (a launch that hangs is abandoned:
+        :class:`DeadlineExceeded`). An out-of-memory is kept in the
+        returned handle, which its resolve answers by halving the batch
+        (where the reference's surfaces); any other error raises here."""
+        up = sum(t.numel() * t.element_size() for t in host)
+        pred = _last_prediction()
+        deadline = dispatch_deadline_s(pred)
         t0 = time.monotonic()
+        ticket = DEVICE_FEEDER.submit(
+            self.feeder_run(launch, what, J, n_fetch), up)
         try:
-            out = device_retry_call(launch, what, J)
+            out, event, upload_s = ticket.wait(deadline)
+        except DeadlineExceeded:
+            raise _abandon(ticket, what, deadline) from None
         except BaseException as e:  # noqa: BLE001 - only an OOM is kept
+            DEVICE_FEEDER.mark_resolved(ticket)
             if not _is_oom(e):
                 raise
             # without its traceback: the frames would keep the attempt's
             # device tensors alive while the halves allocate
-            return Dispatch(None, what, t0, -1, 0,
+            return Dispatch(None, None, what, t0, -1, 0,
                             failure=e.with_traceback(None),
                             thresholds=thresholds)
-        return self._begin(what, t0, out, *host)
+        slot = DEVICE_STATS.begin(self.device, up)
+        DEVICE_STATS.note_upload(slot, upload_s)
+        if pred is not None:
+            DEVICE_STATS.note_pred(slot, pred)
+        handle = Dispatch(ticket, out, what, t0, slot, up,
+                          thresholds=thresholds, n_fetch=n_fetch,
+                          pred_s=pred, event=event)
+        with _LIVE_LOCK:
+            _LIVE_DISPATCHES.add(handle)
+        weakref.finalize(handle, DEVICE_FEEDER.release_dropped,
+                         ticket).atexit = False
+        return handle
+
+    def feeder_run(self, launch, what: str, J: int, n_fetch: int = 4):
+        """The feeder's work item of one launch: :func:`device_retry_call`
+        around ``launch`` and, on the card, an event recorded after it.
+        Returns (outputs, event or None, the launch's wall)."""
+        cuda = self.device.type == "cuda"
+
+        def run():
+            t_up = time.monotonic()
+            out = device_retry_call(launch, what, J)
+            upload_s = time.monotonic() - t_up
+            if not cuda:
+                return out, None, upload_s
+            with _fetch_failure(what):
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(self.device))
+            return out, event, upload_s
+
+        return run
 
     def _emin(self, table: np.ndarray) -> torch.Tensor:
         """The filter's error-rate table as an int32 tensor on the device,
@@ -743,8 +1434,8 @@ class ConsensusKernel:
         """Fused consensus→filter dispatch of a padded (N, L) row batch
         (K1-f). ``lens``: (J,) consensus lengths; ``filter_params``:
         (min_reads_c, min_qual_c, DeviceFilterParams). Returns a ticket for
-        :meth:`resolve_segments_wire_filtered`: ``(True, K1-f outputs)``,
-        or ``(False, full outputs)`` when the batch has more than 63
+        :meth:`resolve_segments_wire_filtered`: ``(True, K1-f handle)``,
+        or ``(False, full-column handle)`` when the batch has more than 63
         distinct quals and takes the packed2 full-column route."""
         mr, mq, fparams = filter_params
         codes_t = torch.from_numpy(codes2d)
@@ -770,8 +1461,12 @@ class ConsensusKernel:
                 self._emin(fparams.emin_tab), fparams.min_base_q,
                 fparams.per_base)
 
-        return True, self._dispatch(launch, "K1-f", len(starts) - 1,
-                                    (wire, starts_t, dict64, lens_t))
+        handle = self._dispatch(launch, "K1-f", len(starts) - 1,
+                                (wire, starts_t, dict64, lens_t),
+                                n_fetch=1)
+        handle.filter_ctx = (mr, mq, np.asarray(lens, dtype=np.int64),
+                             fparams)
+        return True, handle
 
     def resolve_segments_wire_filtered(self, ticket, codes2d: np.ndarray,
                                        quals2d: np.ndarray,
@@ -780,7 +1475,9 @@ class ConsensusKernel:
         resident)`` with ``resident`` the device-side (fb, fq, depth,
         errors, qs, wp) for the gathers, or ``("columns", winner, qual,
         depth, errors)`` — full post-oracle columns — for the packed2
-        route, where the caller's host filter pass takes over."""
+        route, a split batch, a host-routed one and a dispatch the
+        sentinel's inline audit repaired, where the caller's host filter
+        pass takes over."""
         fused, handle = ticket
         if not fused:
             return ("columns",) + self.resolve_segments_wire(
@@ -790,12 +1487,24 @@ class ConsensusKernel:
             # K1 and come back as full columns for the host filter pass
             return ("columns",) + self._recover_segments(
                 handle.failure, codes2d, quals2d, starts, 0)
-        dev = handle.out
-        stats, = self._fetch(handle, dev[:1])
+        dev, (stats,) = self._await(handle)
+        from ..utils import faults
+
+        # the sentinel's corruption drill point: the fused route's only
+        # default fetch is its stats rows
+        stats = faults.fire("device.fetch", stats)
         with self._lock:
             self.fused_batches += 1
             self.stats_bytes += stats.nbytes
             self.total_positions += dev[1].numel()
+        from .sentinel import SENTINEL
+
+        J = len(starts) - 1
+        repaired = SENTINEL.maybe_audit_filter(
+            self, codes2d, quals2d, starts, stats[:J], dev[1:],
+            handle.filter_ctx, slot=handle.slot)
+        if repaired is not None:
+            return ("columns",) + tuple(repaired)
         return "stats", stats, dev[1:]
 
     def _gather(self, arrays, rows):
@@ -877,24 +1586,61 @@ class ConsensusKernel:
         dispatch's :class:`ResidentHandles` (None unless it went through
         K1-r), which the caller releases. Without it a resident dispatch's
         handles are released here. A dispatch that ran out of device memory
-        is completed by :meth:`_recover_segments`, with the same extras."""
+        is completed by :meth:`_recover_segments`, with the same extras.
+        :data:`HOST_DISPATCH` runs the native f64 engine on the rows
+        (extras None); a coalesced handle resolves through the coalescer
+        (its slice of the merged fetch, the same completion)."""
+        if dev_out is HOST_DISPATCH:
+            out = self.host_call_segments(codes2d, quals2d, starts)
+            return out + ({"suspect": None, "resident": None},) \
+                if want_extras else out
+        from .coalesce import COALESCER, CoalescedTicket
+
+        if isinstance(dev_out, CoalescedTicket):
+            return COALESCER.resolve_partner(self, dev_out, codes2d, quals2d,
+                                             starts, _split_depth,
+                                             want_extras)
         if dev_out.failure is not None:
             return self._recover_segments(dev_out.failure, codes2d, quals2d,
                                           starts, _split_depth,
                                           dev_out.thresholds, want_extras)
-        dev = dev_out.out
-        # the handle no longer holds the outputs: the resident arrays live
-        # as long as their ResidentHandles, the rest until fetched
-        dev_out.out = None
-        resident = None
-        if len(dev) == 7:
-            resident = ResidentHandles(dev[4:])
-        qs, wp, d16, e16 = self._fetch(dev_out, dev[:4])
+        dev, host = self._await(dev_out)
+        from ..utils import faults
+
+        # the sentinel's corruption drill point: after the device, before
+        # any host consumer
+        qs, wp, d16, e16 = faults.fire("device.fetch", host)
+        resident = ResidentHandles(dev[4:]) if len(dev) == 7 else None
+        del dev
+        return self.finish_wire(qs, wp, d16, e16, codes2d, quals2d, starts,
+                                want_extras, resident, slot=dev_out.slot)
+
+    def finish_wire(self, qs, wp, d16, e16, codes2d, quals2d, starts,
+                    want_extras=False, resident=None, slot: int = -1,
+                    partner=None):
+        """The host completion of fetched wire columns (int16 depth and
+        errors read as u16): unpack, no-call restore, the f64 oracle patch,
+        then the sentinel's audit tap. Shared by the solo resolve and the
+        coalescer's per-partner slices, so a merged job's bytes cannot
+        diverge from its solo run's. An inline audit that found the
+        columns divergent hands back the oracle's, and the dispatch's
+        resident arrays are dropped (its strand combine takes the host
+        path)."""
         out = self._complete_wire_columns(
-            qs, wp, d16.view(np.uint16), e16.view(np.uint16), codes2d,
-            quals2d, starts)
+            qs, wp, np.asarray(d16).view(np.uint16),
+            np.asarray(e16).view(np.uint16), codes2d, quals2d, starts)
+        from .sentinel import SENTINEL
+
+        repaired = SENTINEL.maybe_audit(self, codes2d, quals2d, starts, *out,
+                                        slot=slot, partner=partner)
+        if repaired is not None:
+            out = tuple(repaired)
+            if resident is not None:
+                resident.release()
+                resident = None
         if want_extras:
-            suspect = (qs[:len(starts) - 1] >> 7).astype(bool)
+            suspect = None if repaired is not None \
+                else (qs[:len(starts) - 1] >> 7).astype(bool)
             return out + ({"suspect": suspect, "resident": resident},)
         if resident is not None:
             resident.release()
@@ -931,16 +1677,22 @@ class ConsensusKernel:
             # hand the allocator's cached blocks back before the halves
             torch.cuda.empty_cache()
         halves, first = [], None
-        for lo, hi in ((0, mid), (mid, J)):
-            r0, r1 = int(starts[lo]), int(starts[hi])
-            c, q = codes2d[r0:r1], quals2d[r0:r1]
-            sub = starts[lo:hi + 1] - r0
-            try:
-                halves.append((self.device_call_segments_wire(
-                    c, q, sub, resident_thresholds=thresholds), c, q, sub))
-            except BaseException as e:  # noqa: BLE001 - re-raised below
-                first = e
-                break
+        from .coalesce import bypassed
+
+        # the halves never enter the coalescer's window: they exist because
+        # a (maybe merged) batch was too large
+        with bypassed():
+            for lo, hi in ((0, mid), (mid, J)):
+                r0, r1 = int(starts[lo]), int(starts[hi])
+                c, q = codes2d[r0:r1], quals2d[r0:r1]
+                sub = starts[lo:hi + 1] - r0
+                try:
+                    halves.append((self.device_call_segments_wire(
+                        c, q, sub, resident_thresholds=thresholds), c, q,
+                        sub))
+                except BaseException as e:  # noqa: BLE001 - re-raised below
+                    first = e
+                    break
         # resolve every half that went out, even past a failure: an
         # unresolved one would hold its in-flight slot and its outputs
         parts = []
@@ -1064,8 +1816,15 @@ class ConsensusKernel:
 
 def route_and_call_segments(kernel: ConsensusKernel, codes2d, quals2d,
                             counts, starts):
-    """Dispatch one dense (N, L) segment batch on the kernel's device and
-    resolve it synchronously: (winner, qual, depth, errors) (J, L)."""
+    """Route one dense (N, L) segment batch (``ROUTER.decide_batch``) and
+    resolve it synchronously: the native f64 host engine, or the wire
+    kernels on the kernel's device. (winner, qual, depth, errors) (J, L)."""
+    from .router import ROUTER
+
+    route = ROUTER.decide_batch(kernel, codes2d.shape[0], len(counts),
+                                codes2d.shape[1])
+    if route == "host":
+        return kernel.host_call_segments(codes2d, quals2d, starts)
     cd, qd, starts = pad_segments(codes2d, quals2d, counts)
     dev = kernel.device_call_segments_wire(cd, qd, starts)
     out = kernel.resolve_segments_wire(dev, cd, qd, starts)
@@ -1180,8 +1939,8 @@ def device_canary(timeout_s: float = 10.0):
     as ``(False, wall, "deadline ...")``; a result other than 0 is
     corruption. Used by the health monitor
     (:class:`fgumi_tpu_torch.ops.breaker.HealthMonitor`); callers feed the
-    breaker from the result. The JAX package also feeds its router's link
-    estimate from a clean round trip; that waits for the router."""
+    breaker from the result; a clean round trip feeds the router's link
+    and overhead estimates, as the JAX package's does."""
     from .canary import canary_sum
 
     t0 = time.monotonic()
@@ -1217,4 +1976,10 @@ def device_canary(timeout_s: float = 10.0):
     got = int(host[0])
     if got != 0:  # the payload is zeros; anything else is corruption
         return False, wall, f"canary sum mismatch: {got}"
+    from .router import ROUTER
+
+    # a clean round trip is one more sample of the per-dispatch overhead
+    # (the reference's canary feed; its upload is not timed apart here, so
+    # it gives no link sample)
+    ROUTER.observe_device(CANARY_BYTES, 4, 0.0, wall, wall)
     return True, wall, None

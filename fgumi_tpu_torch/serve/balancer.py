@@ -40,9 +40,9 @@ admission; exit), never to the backends — operators stop daemons
 directly. SIGTERM is the same drain.
 
 The balancer is host code: it imports no torch and creates no CUDA
-context. Its SDC hold reads each backend's ``audit`` section; the port's
-daemons have no sentinel audit yet and report none, so the hold cannot
-trip against them (a JAX-package backend's audit still trips it)."""
+context. Its SDC hold reads each backend's ``audit`` section: a backend
+whose result sentinel (``ops/sentinel.py``) counted a divergence is held,
+a port daemon as a JAX-package one."""
 
 import logging
 import os

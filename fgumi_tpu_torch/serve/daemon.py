@@ -35,9 +35,14 @@ daemons of one package: the two place families of a repeated MI value
 differently, and the port's gather refuses shards without its family
 counts next to shards with them (``core/sharding.py``).
 
-Not ported: the cross-job dispatch coalescer and the routing-state
-snapshot. The daemon answers the balancer-only ``scatter`` op with the
-reference daemon's refusal.
+The cross-job dispatch coalescer (``ops/coalesce.py``) is opt-in: ``serve
+--coalesce-window-ms`` (or ``FGUMI_TPU_COALESCE``) arms it while the
+daemon serves 2 or more running jobs (the scheduler reports them). The offload router's and the
+strand-combine choosers' EWMAs are saved on close to
+``<journal or socket>.routing.json`` (schema 1, the JAX package's layout,
+so the two packages read each other's) and restored cold-only at start.
+The daemon answers the balancer-only ``scatter`` op with the reference
+daemon's refusal.
 
 Lifecycle: ``drain`` (op) closes admission but keeps answering status;
 ``shutdown`` (op) or SIGTERM/SIGINT additionally exits once queued and
@@ -58,6 +63,22 @@ from .scheduler import Scheduler
 from .transport import SocketBusy  # noqa: F401  (the reference's path)
 
 log = logging.getLogger("fgumi_tpu_torch")
+
+
+def _drain_device_feeder(timeout: float = 30.0):
+    """Run the coalescer's held groups and the device feeder dry before
+    the process exits (looked up in ``sys.modules``: a daemon that never
+    dispatched imports nothing). A wedged launch is waited out at most
+    ``timeout``; nothing here waits on the card."""
+    import sys
+
+    coal = sys.modules.get(__package__.rsplit(".", 1)[0] + ".ops.coalesce")
+    if coal is not None and not coal.COALESCER.drain(timeout=timeout / 2):
+        log.warning("dispatch coalescer did not flush within %.0fs",
+                    timeout / 2)
+    kern = sys.modules.get(__package__.rsplit(".", 1)[0] + ".ops.kernel")
+    if kern is not None and not kern.DEVICE_FEEDER.drain(timeout=timeout):
+        log.warning("device feeder did not drain within %.0fs", timeout)
 
 
 def _clean_traceparent(value):
@@ -163,6 +184,9 @@ class JobService:
         self._frames = None
         self._shutdown = threading.Event()
         self._closed = False
+        #: the routing snapshot's path, whether one was reloaded at start
+        #: and when it was last saved (the `stats` op's routing_state)
+        self.routing_state = None
 
     def _on_transition(self, job):
         if self.journal is not None:
@@ -566,12 +590,115 @@ class JobService:
         self.bind()
         self._frames.start()
 
+    # -- routing warm start -------------------------------------------------
+
+    ROUTING_STATE_SCHEMA_VERSION = 1
+
+    def _routing_state_path(self):
+        """Beside the journal, or beside the socket on a journal-less
+        daemon (the JAX package's location)."""
+        base = self.journal_path or self.socket_path
+        return (base + ".routing.json") if base else None
+
+    def load_routing_state(self):
+        """Reload the previous daemon's routing EWMAs (the router's, with
+        the fused route's keep rate, and the two strand-combine
+        choosers'), cold EWMAs only, so live measurements always win; a
+        restored router stamps ``prior_source="snapshot"``. A missing,
+        unreadable or other-schema snapshot starts cold."""
+        path = self._routing_state_path()
+        self.routing_state = {"path": path, "loaded": False,
+                              "saved_unix": None}
+        if not path or not os.path.exists(path):
+            return False
+        try:
+            with open(path) as f:
+                state = json.load(f)
+        except (OSError, ValueError) as e:
+            log.warning("serve: unreadable routing snapshot %s (%s); "
+                        "starting cold", path, e)
+            return False
+        if not isinstance(state, dict) or state.get("schema_version") \
+                != self.ROUTING_STATE_SCHEMA_VERSION:
+            log.warning("serve: routing snapshot %s has schema %s (want "
+                        "%d); starting cold", path,
+                        state.get("schema_version")
+                        if isinstance(state, dict) else None,
+                        self.ROUTING_STATE_SCHEMA_VERSION)
+            return False
+        from ..observe.metrics import METRICS
+        from ..ops import router as router_mod
+
+        restored = router_mod.ROUTER.restore_state(
+            state.get("router") or {}, source="snapshot")
+        for name, chooser in (("duplex_combine", router_mod.DUPLEX_COMBINE),
+                              ("codec_combine", router_mod.CODEC_COMBINE)):
+            if chooser.restore_state(
+                    (state.get("choosers") or {}).get(name) or {}):
+                restored = True
+        self.routing_state.update(loaded=bool(restored),
+                                  saved_unix=state.get("saved_unix"))
+        if restored:
+            METRICS.inc("tune.routing_state.restored")
+            log.info("serve: warm-started routing EWMAs from %s (saved %s)",
+                     path, state.get("saved_unix"))
+        return restored
+
+    def save_routing_state(self):
+        """Write the live routing EWMAs beside the journal (atomic rename;
+        the coalescer's window rides along for the record). Returns the
+        path, or None."""
+        path = self._routing_state_path()
+        if not path:
+            return None
+        import sys
+
+        from ..ops import router as router_mod
+        from ..utils.atomic import discard_output, open_output
+
+        state = {
+            "schema_version": self.ROUTING_STATE_SCHEMA_VERSION,
+            "saved_unix": int(time.time()),
+            "router": router_mod.ROUTER.export_state(),
+            "choosers": {
+                "duplex_combine": router_mod.DUPLEX_COMBINE.export_state(),
+                "codec_combine": router_mod.CODEC_COMBINE.export_state(),
+            },
+        }
+        coal = sys.modules.get(__package__.rsplit(".", 1)[0]
+                               + ".ops.coalesce")
+        if coal is not None:
+            state["coalesce_window_ms"] = round(coal.window_s() * 1e3, 3)
+        try:
+            out = open_output(path, "w")
+            try:
+                json.dump(state, out, indent=2, sort_keys=True)
+                out.write("\n")
+                out.close()
+            except BaseException:
+                discard_output(out)
+                raise
+        except OSError as e:
+            log.warning("serve: could not save routing snapshot %s: %s",
+                        path, e)
+            return None
+        if self.routing_state is not None:
+            self.routing_state["saved_unix"] = state["saved_unix"]
+        log.info("serve: routing EWMAs -> %s", path)
+        return path
+
     def start(self):
         """Bind (if not already), recover, start workers and the accept
         loops. Recovery runs before the pool so requeued jobs hold their
         original queue positions ahead of any fresh submission."""
         self.bind()
         self.recover()
+        self.load_routing_state()
+        # the coalescer's window may open while 2 or more of this
+        # daemon's jobs run (the scheduler reports the count)
+        from ..ops.coalesce import COALESCER
+
+        COALESCER.set_serving(True)
         self.scheduler.start()
         if self.health_period_s > 0:
             from ..ops.breaker import BREAKER, HealthMonitor
@@ -732,13 +859,13 @@ class JobService:
 
     def wait_until_shutdown(self, poll_s: float = 0.2):
         """Block until a shutdown is requested AND the pool is quiescent.
-        Closes admission (idempotent drain) once the flag is seen. Every
-        job fetches its device results before it ends, so the finished
-        pool leaves nothing of its own queued on the card."""
+        Closes admission (idempotent drain) once the flag is seen, then
+        runs the coalescer and the device feeder dry."""
         while not self._shutdown.wait(poll_s):
             pass
         self.scheduler.drain()
         self.scheduler.join()
+        _drain_device_feeder()
 
     def close(self):
         """Tear the listeners down and remove the socket file (idempotent)."""
@@ -746,6 +873,16 @@ class JobService:
             return
         self._closed = True
         self._shutdown.set()
+        # the learned routing EWMAs for the next daemon's warm start (close
+        # is the one exit path every shutdown reaches)
+        if self.routing_state is not None:
+            self.save_routing_state()
+        import sys
+
+        coal = sys.modules.get(__package__.rsplit(".", 1)[0]
+                               + ".ops.coalesce")
+        if coal is not None:
+            coal.COALESCER.set_serving(False)
         if self._scanner is not None:
             self._scanner.stop()
         if self._monitor is not None:

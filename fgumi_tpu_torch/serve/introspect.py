@@ -33,10 +33,13 @@ import time
 
 log = logging.getLogger("fgumi_tpu_torch")
 
-#: stats payload schema: the JAX package's version 6, whose sections of
-#: components the port does not have (``router``, ``routing_state``,
-#: ``audit``, ``coalesce``) are left out. ``fleet`` is journal-lease
-#: takeover accounting (None outside ``serve --journal-dir``)
+#: stats payload schema: the JAX package's version 6. ``fleet`` is
+#: journal-lease takeover accounting (None outside ``serve
+#: --journal-dir``); ``router`` the offload cost model, ``routing_state``
+#: the daemon's routing snapshot (path, loaded, saved), ``audit`` the
+#: result sentinel's scoreboard (the fleet balancer holds a backend whose
+#: ``divergent`` is above 0) and ``coalesce`` the cross-job coalescer's
+#: (each None while its subsystem is idle or not loaded)
 STATS_SCHEMA_VERSION = 6
 
 _NAME_RE = re.compile(r"[^a-zA-Z0-9_]")
@@ -56,8 +59,10 @@ def service_stats(service) -> dict:
     Always includes every key; sections whose subsystem was never touched
     in this process are ``None`` (e.g. ``device`` before the first kernel
     import), so clients can rely on the shape."""
-    from ..observe.flight import (breaker_snapshot, device_memory_snapshot,
-                                  governor_snapshot, live_device_stats)
+    from ..observe.flight import (audit_snapshot, breaker_snapshot,
+                                  coalesce_snapshot, device_memory_snapshot,
+                                  governor_snapshot, live_device_stats,
+                                  router_snapshot)
     from ..observe.metrics import METRICS
 
     stats = live_device_stats()
@@ -79,6 +84,10 @@ def service_stats(service) -> dict:
         "breaker": breaker_snapshot(),
         "governor": governor_snapshot(),
         "monitor": _monitor_section(service),
+        "router": router_snapshot(),
+        "routing_state": getattr(service, "routing_state", None),
+        "audit": audit_snapshot(),
+        "coalesce": coalesce_snapshot(),
     }
 
 
@@ -167,6 +176,22 @@ def render_prometheus(service) -> str:
               "live accelerator bytes in use, summed over local devices")
         gauge("device.memory.peak_bytes",
               stats["device_memory"]["peak_bytes"])
+    if stats["audit"] is not None:
+        # the silent-corruption scoreboard a fleet balancer holds on:
+        # daemon-lifetime counters straight from the sentinel
+        for key in ("sampled", "clean", "divergent", "dropped"):
+            gauge(f"device.audit.{key}", stats["audit"].get(key, 0),
+                  "shadow-audit scoreboard (ops/sentinel.py)"
+                  if key == "sampled" else None)
+    if stats["coalesce"] is not None:
+        # the cross-job coalescer's daemon-lifetime counters
+        for key, v in stats["coalesce"].items():
+            if isinstance(v, bool):
+                gauge(f"device.coalesce.{key}", int(v))
+            elif isinstance(v, (int, float)):
+                gauge(f"device.coalesce.{key}", v,
+                      "dispatch-coalescer scoreboard (ops/coalesce.py)"
+                      if key == "merged_batches" else None)
 
     # flat counters/gauges from the SAME snapshot the stats op returns
     # (last finished job + anything written outside job scopes). Names the

@@ -207,6 +207,19 @@ class Scheduler:
 
     # -- worker -------------------------------------------------------------
 
+    @staticmethod
+    def _note_active_jobs(n: int):
+        """The running-job count to the cross-job dispatch coalescer
+        (ops/coalesce.py): its window opens only while 2 or more jobs run
+        in this process. Called under the scheduler condition, so two
+        workers' counts publish in order; never fails a worker."""
+        try:
+            from ..ops.coalesce import COALESCER
+
+            COALESCER.set_active_jobs(n)
+        except Exception:  # noqa: BLE001 - telemetry must not kill workers
+            log.debug("coalescer active-job signal failed", exc_info=True)
+
     def _worker_loop(self, widx: int):
         while True:
             with self._cv:
@@ -214,6 +227,7 @@ class Scheduler:
                     self._cv.wait()
                 _, _, job = heapq.heappop(self._heap)
                 self._running += 1
+                self._note_active_jobs(self._running)
             try:
                 self.registry.mark_running(job)
                 rc = self._execute(job)
@@ -233,5 +247,6 @@ class Scheduler:
             finally:
                 with self._cv:
                     self._running -= 1
+                    self._note_active_jobs(self._running)
                     self._release_client_locked(job)
                     self._cv.notify_all()

@@ -27,15 +27,16 @@ Arm via the environment::
   1.0 the first ``count`` arrivals trigger, so threaded runs are
   deterministic too.
 
-The port fires the host points and the device points ``device.dispatch``
-(every attempt of a dispatch: the bounded retry, and with kind ``oom`` the
-batch split, of ``ops/kernel.py``) and ``device.wedge`` (once a dispatch,
-before its retry loop), and the serve daemon's ``serve.dispatch`` (once a
-job, before it runs: a raise fails that job, and the daemon serves on).
-``device.fetch`` feeds the JAX package's result sentinel and
-``serve.coalesce`` its cross-job coalescer, which the port does not have
-yet: :func:`unported_spec` names them, and the CLI refuses such a spec
-(exit 2, "not yet ported") before any output is opened.
+The port fires every point: the host points, the device points
+``device.dispatch`` (every attempt of a dispatch: the bounded retry, and
+with kind ``oom`` the batch split, of ``ops/kernel.py``), ``device.wedge``
+(once a dispatch, before its retry loop) and ``device.fetch`` (the fetched
+results of a consensus dispatch, before any host consumer: the result
+sentinel's ``corrupt-result`` drill), the serve daemon's ``serve.dispatch``
+(once a job, before it runs: a raise fails that job, and the daemon serves
+on) and the cross-job coalescer's ``serve.coalesce`` (inside each merged
+launch). :data:`UNPORTED_POINTS` is empty; :func:`unported_spec` stays for
+a point a later JAX package may add.
 
 Faults are re-parsed whenever the variable's value changes, so tests can
 arm and disarm between in-process runs.
@@ -57,11 +58,11 @@ FAULT_POINTS = frozenset({
     "device.dispatch",     # device upload + launch, every attempt
                            # (ops/kernel.py device_retry_call)
     "device.wedge",        # dispatch entry, once before the retry loop
-    "device.fetch",        # fetched device results (not fired yet)
+    "device.fetch",        # fetched device results (ops/kernel.py)
     "writer.compress",     # BGZF writer write/flush (io/bgzf.py)
     "native.batch",        # native batch-op entry (native/batch.py)
     "serve.dispatch",      # job-service worker dispatch (serve/daemon.py)
-    "serve.coalesce",      # merged cross-job dispatch (not fired yet)
+    "serve.coalesce",      # merged cross-job launch (ops/coalesce.py)
     "chain.handoff",       # fused-pipeline channel put (pipeline_chain.py)
     "sort.spill",          # external-sort spill-run write (sort/external.py)
     "governor.sample",     # resource-governor sampling tick
@@ -69,9 +70,8 @@ FAULT_POINTS = frozenset({
 })
 
 #: Points a spec may name in the JAX package whose machinery the port
-#: lacks (the result sentinel, the cross-job coalescer): the CLI refuses
-#: them as not yet ported
-UNPORTED_POINTS = frozenset({"device.fetch", "serve.coalesce"})
+#: lacks (none: the CLI would refuse them as not yet ported)
+UNPORTED_POINTS = frozenset()
 
 KINDS = frozenset({"raise", "hang", "corrupt-bytes", "corrupt-result",
                    "oom", "enospc"})
@@ -256,6 +256,13 @@ def snapshot():
     with _lock:
         _refresh_locked()
         return {p: f.fired for p, f in _armed.items()}
+
+
+def hang_fired() -> bool:
+    """Whether an armed ``hang`` fault has fired (a dispatch deadline
+    overrun it caused exits 3, as an injected fault does)."""
+    with _lock:
+        return any(f.kind == "hang" and f.fired for f in _armed.values())
 
 
 def unported_spec(env: str = None):

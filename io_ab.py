@@ -10,9 +10,14 @@ gitignored directory:
 It builds both trees' native library and CUDA kernels (each in its own
 ``fgumi_tpu_torch/_build``, all at once), simulates ``chip_smoke.py``'s
 ``fixed5_1M``, ``duplex_240k`` and ``pipeline_400k`` inputs once, and runs
-``simplex``, ``duplex`` and ``pipeline`` on ``cuda`` in each tree, each in a
+``simplex``, ``duplex`` (also ``--device-filter``: ``duplex_240k_df``) and
+``pipeline`` on ``cuda`` in each tree, each in a
 process of its own, serially and at ``--threads 4``, in turns (base, new,
-new, base). Each run prints an ``ab`` line: its wall (``--stats-json``'s
+new, base; ``--rounds N`` repeats the turns N times). ``--only
+CASE:MODE,...`` (for example ``pipeline_400k:t4,duplex_240k:serial``) runs
+those cells alone and simulates only their inputs; ``--trace`` runs each
+command under the global ``--trace`` and adds the seconds of each span
+name (summed over threads) to its line. Each run prints an ``ab`` line: its wall (``--stats-json``'s
 ``wall_s``) and process time, the stage busy seconds of its stage table
 (``pipeline``: the simplex stage's, and each stage's wall), its launches
 and a digest of its records, which must be equal across every run of a
@@ -38,6 +43,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CASES = {
     "fixed5_1M_fast": ("simplex", "fixed5_1M", []),
     "duplex_240k": ("duplex", "duplex_240k", []),
+    "duplex_240k_df": ("duplex", "duplex_240k",
+                       ["--device-filter", "--filter-min-reads", "6,3,3"]),
     "pipeline_400k": ("pipeline", "pipeline_400k", cs.PIPELINE_OPTS),
 }
 MODES = {"serial": [], "t4": ["--threads", "4"]}
@@ -68,13 +75,28 @@ def records_digest(path: str) -> str:
     return f"{n}:{h.hexdigest()[:16]}"
 
 
+def span_seconds(path: str) -> dict:
+    """Seconds of each span name in a Chrome trace, summed over threads."""
+    with open(path) as f:
+        trace = json.load(f)
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    out = {}
+    for e in events:
+        if e.get("ph") == "X":
+            out[e["name"]] = out.get(e["name"], 0.0) + e["dur"] / 1e6
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
 def run(tree_name: str, tree: str, case: str, mode: str, inp, work: str,
-        k: int) -> dict:
+        k: int, trace: bool = False) -> dict:
     command, _, flags = CASES[case]
     out = os.path.join(work, f"{case}.{mode}.{tree_name}.{k}.bam")
     stats_path = out + ".json"
+    trace_path = out + ".trace.json"
     inputs = list(inp) if isinstance(inp, tuple) else [inp]
-    argv = [sys.executable, "-m", "fgumi_tpu_torch", command, "-i", *inputs,
+    argv = [sys.executable, "-m", "fgumi_tpu_torch",
+            *(["--trace", trace_path] if trace else []), command, "-i",
+            *inputs,
             *flags, "-o", out, "--device", "cuda", "--stats-json",
             stats_path, *MODES[mode]]
     t0 = time.monotonic()
@@ -95,6 +117,9 @@ def run(tree_name: str, tree: str, case: str, mode: str, inp, work: str,
     if command == "pipeline":
         line["stage_wall_s"] = {k.split(".")[2]: v for k, v in st.items()
                                 if k.startswith("pipeline.stage.")}
+    if trace:
+        line["spans_s"] = span_seconds(trace_path)
+        os.unlink(trace_path)
     print("ab " + json.dumps(line), flush=True)
     os.unlink(out)
     return line
@@ -109,7 +134,20 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--base", required=True,
                     help="the other tree (a directory with fgumi_tpu_torch)")
+    ap.add_argument("--rounds", type=int, default=1,
+                    help="repeat the turns (base, new, new, base) N times")
+    ap.add_argument("--trace", action="store_true",
+                    help="trace each run and add its span seconds")
+    ap.add_argument("--only", default="",
+                    help="CASE:MODE cells to run, comma-separated "
+                         "(default: every case in every mode)")
     args = ap.parse_args()
+    cells = [tuple(c.split(":", 1)) for c in args.only.split(",") if c] \
+        or [(c, m) for c in CASES for m in MODES]
+    for case, mode in cells:
+        cs.check(case in CASES and mode in MODES,
+                 f"--only: unknown cell {case}:{mode}")
+    wanted = {CASES[c][1] for c, _ in cells}
     trees = {"base": os.path.abspath(args.base), "new": ROOT}
     for name, tree in trees.items():
         cs.check(os.path.isdir(os.path.join(tree, "fgumi_tpu_torch")),
@@ -122,6 +160,7 @@ def main():
             "duplex_240k": (cs._simulate_duplex, cs.DUPLEX["duplex_240k"]),
             "pipeline_400k": (cs._simulate_fastq,
                               cs.FASTQ["pipeline_400k"])}
+    sims = {k: v for k, v in sims.items() if k in wanted}
     with tempfile.TemporaryDirectory(prefix="io_ab_") as work:
         paths = {"fixed5_1M": os.path.join(work, "fixed5_1M.bam"),
                  "duplex_240k": os.path.join(work, "duplex_240k.bam"),
@@ -141,17 +180,18 @@ def main():
                 print(f"built input {k}: {n} records in {dt:.1f}s",
                       flush=True)
         summary = {}
-        for case, (_, inp, _) in CASES.items():
-            digests = set()
-            for mode in MODES:
-                for k, name in enumerate(ORDER):
-                    line = run(name, trees[name], case, mode, paths[inp],
-                               work, k)
-                    digests.add(line["records"])
-                    summary.setdefault(f"{case} {mode} {name}", []).append(
-                        line["wall_s"])
-            cs.check(len(digests) == 1,
-                     f"{case}: records differ between runs: {digests}")
+        digests = {}
+        for case, mode in cells:
+            inp = CASES[case][1]
+            for k, name in enumerate(ORDER * max(args.rounds, 1)):
+                line = run(name, trees[name], case, mode, paths[inp],
+                           work, k, args.trace)
+                digests.setdefault(case, set()).add(line["records"])
+                summary.setdefault(f"{case} {mode} {name}", []).append(
+                    line["wall_s"])
+        for case, got in digests.items():
+            cs.check(len(got) == 1,
+                     f"{case}: records differ between runs: {got}")
     print("summary " + json.dumps(summary), flush=True)
     print(smi, flush=True)
 

@@ -290,9 +290,11 @@ def test_sdc_hold_trips_only_on_reported_divergence(sock_dir, daemons,
                        poll_period_s=0.1)
     try:
         bal.poll_backends_once()
-        # the port's daemons have no sentinel audit: never held
-        assert "audit" not in daemons[0].handle_request(
-            {"v": 1, "op": "stats"})["stats"]
+        # the port's daemons report the sentinel's audit section; with
+        # no divergence counted they are never held
+        stats = daemons[0].handle_request({"v": 1, "op": "stats"})["stats"]
+        assert "audit" in stats
+        assert (stats["audit"] or {}).get("divergent", 0) == 0
         assert not any(b.get("sdc_hold")
                        for b in bal.stats_snapshot()["backends"])
         a = bal.backends[0]

@@ -11,9 +11,12 @@ contract of the port's global options, held against the JAX package.
   under ``--audit-output``; a retried ``device.dispatch`` raise and a
   ``device.wedge`` hang exit 0 with the JAX CLI's records, kind ``oom`` at
   a host point exits 3 on both; ``device.fetch`` and ``serve.coalesce``
-  exit 2 on the port ("not yet ported") before any output is opened
-  (``serve.dispatch`` fires in the port's serve daemon:
-  ``tests/test_torch_serve_daemon.py``).
+  are live points now: a ``corrupt-result`` under ``FGUMI_TPU_AUDIT=all``
+  is caught and repaired by the result sentinel and the coalescer's point
+  never fires outside a serving daemon, so both exit 0 with the JAX CLI's
+  records (``serve.dispatch`` fires in the port's serve daemon:
+  ``tests/test_torch_serve_daemon.py``; ``serve.coalesce`` in
+  ``tests/test_torch_coalesce.py``).
 - Every global option of the reference is accepted; ``--profile``,
   ``--mesh``, ``--xla-profile`` and ``--shape-buckets`` exit 2 with one
   line, never argparse's usage error.
@@ -146,11 +149,10 @@ def test_bad_spec_is_loud(monkeypatch, spec, err):
 @pytest.mark.parametrize("spec,unported", [
     ("device.dispatch:raise:1.0", None),
     ("pipeline.process:raise:1.0,device.fetch:corrupt-result:1.0:1",
-     "device.fetch:corrupt-result"),
+     None),
     ("reader.decompress:oom:1.0", None),
     ("serve.dispatch:raise:1.0", None),
-    ("device.wedge:hang:1.0:1,serve.coalesce:raise:1.0",
-     "serve.coalesce:raise"),
+    ("device.wedge:hang:1.0:1,serve.coalesce:raise:1.0", None),
     ("sort.spill:enospc:1.0:1", None),
     ("", None)])
 def test_unported_spec(spec, unported):
@@ -315,15 +317,42 @@ def test_ported_fault_matches_jax(tmp_path, monkeypatch, inputs, spec, rc):
     "serve.coalesce:hang:1.0:1"])
 def test_unported_fault_refused_before_output(tmp_path, monkeypatch, caplog,
                                               inputs, spec):
+    """The two points the port once refused (exit 2) now fire: a corrupt
+    result under ``FGUMI_TPU_AUDIT=all`` is repaired by the sentinel's
+    inline audit, and the coalescer's point does not fire outside a
+    serving daemon; both runs exit 0 with the JAX CLI's records."""
+    from fgumi_tpu_torch.io.bam import BamReader
+    from fgumi_tpu_torch.ops import sentinel
+
     monkeypatch.setenv("FGUMI_TPU_FAULT", spec)
-    out = tmp_path / "o.bam"
-    with caplog.at_level(logging.ERROR, logger="fgumi_tpu_torch"):
-        assert port_cli.main(_argv("simplex", inputs, str(out))
-                             + ["--device", "cpu"]) == 2
-    assert os.listdir(tmp_path) == []
-    errors = [r.getMessage() for r in caplog.records
-              if r.levelno >= logging.ERROR]
-    assert len(errors) == 1 and "not yet ported" in errors[0]
+    monkeypatch.setenv("FGUMI_TPU_FAULT_HANG_S", "0")
+    monkeypatch.setenv("FGUMI_TPU_AUDIT", "all")
+    from fgumi_tpu_torch.ops.breaker import BREAKER
+
+    sentinel.SENTINEL.reset()
+    recs = {}
+    try:
+        for name, main, extra in (("jax", jax_cli.main, []),
+                                  ("port", port_cli.main,
+                                   ["--device", "cpu"])):
+            port_faults.reset()
+            jax_faults.reset()
+            out = tmp_path / f"{name}.bam"
+            assert main(_argv("simplex", inputs, str(out)) + extra) == 0, \
+                name
+            with BamReader(str(out)) as r:
+                recs[name] = [rec.data for rec in r]
+        assert recs["port"] and recs["port"] == recs["jax"]
+        snap = sentinel.SENTINEL.snapshot()
+        if spec.startswith("device.fetch"):
+            assert port_faults.snapshot() == {"device.fetch": 1}
+            assert snap["divergent"] >= 1 and snap["divergence"]
+        else:
+            assert port_faults.snapshot() == {"serve.coalesce": 0}
+    finally:
+        # the divergence quarantined this process's breaker
+        sentinel.SENTINEL.reset()
+        BREAKER.reset()
 
 
 # ---------------------------------------------------------------------------

@@ -355,6 +355,9 @@ def test_whale_survives_a_backend_killed_mid_whale(inputs, tmp_path):
                        scatter_wal=os.path.join(d, "scatter.wal"))
         bal.bind()
         bal.start()
+        # both depths known before the whale arrives: a backend not yet
+        # polled routes last, so every shard could land on the other one
+        bal.poll_backends_once()
         client = ServeClient(front, timeout=30)
         wid = client.submit(argv)["id"]
         cb = ServeClient(sb, timeout=10)

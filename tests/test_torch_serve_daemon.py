@@ -679,7 +679,10 @@ def _errors(caplog):
     (["--journal-dir", "fleet", "--lease-scan-period", "1", "--fleet-id",
       "a/b"], "invalid fleet id 'a/b'"),
     (["--journal-dir", "fleet", "--fleet-id", ".a"], "invalid fleet id"),
-    (["--coalesce-window-ms", "2"], "--coalesce-window-ms 2: not yet ported"),
+    # the coalescer is ported: its window no longer refuses, so the next
+    # misused option is the one reported
+    (["--coalesce-window-ms", "2", "--health-period", "-1"],
+     "--health-period must be >= 0"),
     (["--compile-cache", "cache"], "--compile-cache: JAX-only"),
     (["--coalesce-window-ms", "-1"], "--coalesce-window-ms must be >= 0"),
     ([], None),
