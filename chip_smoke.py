@@ -20,7 +20,15 @@ the fleet phase alone, on its three inputs, ``longtail_200k``,
 run of each whale's argv here, then the last lines. ``python3 chip_smoke.py
 --phase route`` runs the route phase alone, on its four inputs,
 ``longtail_200k``, ``duplex_240k``, ``many_quals_20k`` and ``fixed5_1M``,
-after the ``cuda`` runs it holds its cases to, then the last lines.)
+after the ``cuda`` runs it holds its cases to, then the last lines.
+``python3 chip_smoke.py --phase tune`` runs the tune phase alone: its two
+inputs, ``longtail_200k`` and ``duplex_240k``, then the ``tune --quick``
+child on an otherwise idle card, then the ``cuda`` runs it holds its
+profile runs to (the simplex run with ``--run-report``, the replay's
+evidence), then the phase, with each profile run also made without and
+with the profile in turns (plain, profile, profile, plain: children one
+at a time, their walls side by side), then K8's entry and the last
+lines.)
 
 Phases (any failed check exits nonzero; nothing is caught and passed over):
 
@@ -95,9 +103,12 @@ Phases (any failed check exits nonzero; nothing is caught and passed over):
      the fast engine on 8 positions x 3,000 molecules x 3 templates, 4+4
      paired UMIs, half BA (K4 twice a group);
    each group run also writes its ``-M`` metrics files, equal between
-   ``cuda`` and ``cpu``; the fast runs' records and metrics files must
-   also equal the ``--classic`` run's, and their ``e2e`` line carries the
-   busy wall of the read, process and write stages;
+   ``cuda`` and ``cpu`` (the ``--classic`` adjacency and edit runs are
+   made on ``cuda`` alone since PR 26: each is held to the fast engine's
+   ``cuda`` run, which is held to its ``cpu`` run); the fast runs' records
+   and metrics files must also equal the ``--classic`` run's, and their
+   ``e2e`` line carries the busy wall of the read, process and write
+   stages;
    - ``pipeline_400k``: ``pipeline`` from FASTQ to filtered consensus
      (extract ⇒ template-coordinate sort ⇒ group ⇒ simplex ⇒ filter) on the
      port's ``simulate fastq-reads`` output, 40,000 families x 5 pairs,
@@ -355,7 +366,28 @@ Phases (any failed check exits nonzero; nothing is caught and passed over):
    0.5:2``: exit 3 before the hang could end, its deadline line within 3
    s of the hang's start (the child's own log clock), no output; a
    ``route`` line; each kernel's R1 launches in the ``kernels`` line as
-   ``audited_launches``;
+   ``audited_launches``; then the ``tune`` phase (:func:`tune_phase`):
+   K8 ``tune_combine`` against its plain version and numpy's expression
+   on the card, exactly, at the sweep's (512, 100) and (4096, 150) on the
+   chooser bench's arrays, random bytes, bytes 250-255 half of them equal
+   (``min + 3`` wraps) and a view 1 byte past a 16-byte boundary (the byte
+   path), and at 37 x 99 (the 16-byte words' tail), each with its launch
+   geometry and registers, timed at both shapes beside its 3-byte-a-cell
+   bound and its plain version (no single PyTorch call computes it); the
+   ``tune --quick --device cuda`` child started right after the kernels'
+   build (beside the test shapes and the inputs' simulation) must have
+   exited 0 with a profile and an atlas the port's validator accepts, the 3
+   quick cells each with both rates and a winner, K1 launched on each of
+   its 12 timed device calls and K8 4 times (its launch line); ``tune
+   --replay`` of R4's run report, in this process, takes that report's
+   ``device.routing`` values as its router priors; ``longtail_200k_fast``
+   and ``duplex_240k``'s ``duplex`` run again under ``--profile`` (children
+   at once) write their ``cuda`` runs' records, their run reports show the
+   knobs applied, the router seeded and ``prior_source`` "profile", their
+   kernels launched, and no "gate timed out" line; a ``tune`` line with
+   each cell's rates and winner, the crossovers, the knobs (the feeder
+   depth), the chooser and router priors (``link_mbps``: the feeder's
+   staging copy and launch) and the walls;
 4. kernels at the main-path shapes the runs reported (the fast runs' largest
    batch; the simplex stage's largest batch of each ``cuda`` pipeline run:
    K1 on fused and ``--no-fuse`` ``pipeline_400k`` and on
@@ -391,7 +423,10 @@ Phases (any failed check exits nonzero; nothing is caught and passed over):
    ``pipeline_k4_50k_fused`` and ``amplicon_dedup_adjacency_fast``, K1-r
    and K5 ``duplex_240k``, K1 and K6
    ``codec_320k``, K1-p2 ``many_quals_20k``, K1 ``mapped_chain_400k`` at
-   that run's largest simplex batch, K7 ``serve_health_monitor``; an
+   that run's largest simplex batch, K7 ``serve_health_monitor``, K8
+   ``tune_quick`` (its launches the ``tune`` child's own count, checked
+   and timed at (512, 100), with ``full_ms``, ``full_plain_ms`` and
+   ``full_bound_ms`` at (4096, 150)); an
    entry whose path has a staged run
    also with ``staged_path`` and ``staged_launches``, that run and its
    count; each entry with its registers
@@ -403,6 +438,7 @@ Phases (any failed check exits nonzero; nothing is caught and passed over):
 Exits 2 without a result when CUDA is unavailable or the port is missing.
 """
 
+import atexit
 import concurrent.futures as cf
 import json
 import logging
@@ -457,6 +493,11 @@ AMPLICONS = {
 }
 GROUP_RUNS = (("amplicon_group", "adjacency"), ("amplicon_group", "edit"),
               ("amplicon_paired", "paired"))
+# the strategies whose --classic run is also made on cpu (PR 26 dropped
+# the others' to pay for the tune phase: the fast run on the same input is
+# held to the classic cuda run and to its own cpu run, so a K4 defect on
+# either engine still shows)
+GROUP_CLASSIC_CPU = ("paired",)
 # FASTQ inputs of the pipeline (simulate fastq-reads, 5 pairs a family)
 FASTQ = {"pipeline_400k": 40000, "pipeline_k4_50k": 5000}
 FASTQ_SIM = ["--family-size", "5", "--read-length", "100", "--seed", "7"]
@@ -2003,14 +2044,15 @@ def metrics_files(out: str) -> dict:
     return files
 
 
-def group_case(case, strategy, inp, work, engine, classic=None):
+def group_case(case, strategy, inp, work, engine, classic=None,
+               cpu: bool = True):
     """``group`` on an amplicon input: cuda run between a reset and a read
-    of the counts, then cpu; records and ``-M`` metrics files must be
-    identical, and K4 must have run once per position group (twice for
-    paired: the forward and the strand-reversed matrix), so every group
-    reached the device threshold. The fast engine's records and metrics
-    files must also equal the ``--classic`` run's (``classic``: that case's
-    summary)."""
+    of the counts, then (with ``cpu``) cpu; records and ``-M`` metrics
+    files must be identical, and K4 must have run once per position group
+    (twice for paired: the forward and the strand-reversed matrix), so
+    every group reached the device threshold. The fast engine's records
+    and metrics files must also equal the ``--classic`` run's
+    (``classic``: that case's summary)."""
     name = f"{case}_{strategy}" + ("_fast" if engine == "fast" else "")
     out_gpu = os.path.join(work, f"{name}.cuda.bam")
     out_cpu = os.path.join(work, f"{name}.cpu.bam")
@@ -2026,16 +2068,18 @@ def group_case(case, strategy, inp, work, engine, classic=None):
     check(k4 == per_group * AMPLICONS[case]["positions"],
           f"{name}: {k4} K4 launches for {AMPLICONS[case]['positions']} "
           "position groups")
-    st_cpu = run_group(inp, out_cpu, "cpu", strategy, engine)
-    a, b = records(out_gpu), records(out_cpu)
+    a = records(out_gpu)
     check(len(a) > 0, f"{name}: no records")
-    check(a == b, f"{name}: cuda and cpu records differ")
-    check(st["filter"] == st_cpu["filter"]
-          and st["family_sizes"] == st_cpu["family_sizes"],
-          f"{name}: cuda and cpu metrics differ")
     files = metrics_files(out_gpu)
-    check(files == metrics_files(out_cpu),
-          f"{name}: cuda and cpu metrics files differ")
+    st_cpu = run_group(inp, out_cpu, "cpu", strategy, engine) if cpu \
+        else None
+    if cpu:
+        check(a == records(out_cpu), f"{name}: cuda and cpu records differ")
+        check(st["filter"] == st_cpu["filter"]
+              and st["family_sizes"] == st_cpu["family_sizes"],
+              f"{name}: cuda and cpu metrics differ")
+        check(files == metrics_files(out_cpu),
+              f"{name}: cuda and cpu metrics files differ")
     if classic is not None:
         check(a == records(classic["out"]),
               f"{name}: records differ from the --classic run's")
@@ -2054,9 +2098,10 @@ def group_case(case, strategy, inp, work, engine, classic=None):
         "launches": counts, "largest_launch": span["largest"],
         "molecule_ids": sum(int(k) * v
                             for k, v in st["family_sizes"].items()),
-        "cpu_wall_s": st_cpu["wall_s"],
-        "cpu_reads_per_s": st_cpu["input_reads"] / st_cpu["wall_s"],
-        "cpu_device_span": st_cpu["device_span"],
+        "cpu_wall_s": st_cpu["wall_s"] if cpu else None,
+        "cpu_reads_per_s": (st_cpu["input_reads"] / st_cpu["wall_s"]
+                            if cpu else None),
+        "cpu_device_span": st_cpu["device_span"] if cpu else None,
         "records_identical": True,
         "metrics_files_identical": True}
     print("e2e " + json.dumps(summary), flush=True)
@@ -2086,7 +2131,8 @@ def group_phase(paths, work):
     (the default), which is held to the classic run."""
     out = {}
     for case, strategy in GROUP_RUNS:
-        classic = group_case(case, strategy, paths[case], work, "classic")
+        classic = group_case(case, strategy, paths[case], work, "classic",
+                             cpu=strategy in GROUP_CLASSIC_CPU)
         out[f"{case}_{strategy}"] = classic
         out[f"{case}_{strategy}_fast"] = group_case(
             case, strategy, paths[case], work, "fast", classic)
@@ -5077,6 +5123,7 @@ def route_phase(paths, work, clean) -> dict:
                                                           0),
                      "k1_launches": k1, "host_batches": host,
                      "routing": r["report"].get("device", {}).get("routing"),
+                     "report_path": r["out"] + ".report.json",
                      "wall_s": r["st"]["wall_s"], "cuda_wall_s": ref["wall_s"]}
     except BaseException:
         # a failed check above must not leave the child behind
@@ -5409,6 +5456,361 @@ def fleet_phase(work, runs) -> dict:
 
 # -------------------------------------------------------------------- main
 
+# ------------------------------------------------------------------- tune
+
+# the tune phase: ``tune --quick`` in a child, ``tune --replay`` of an
+# earlier cuda run's report, and two runs under the tuned profile
+TUNE_INPUTS = ("longtail_200k", "duplex_240k")
+TUNE_SOURCE = "fgumi_tpu_torch/csrc/tune_combine.cu"
+REPLACES_TUNE_COMBINE = "fgumi_tpu/tune/autotune.py:207"
+# K8's shapes: ``tune --quick``'s (512, 100) and the full sweep's (4096,
+# 150); a small odd shape for the 16-byte path's tail
+TUNE_SHAPES = ((512, 100), (4096, 150))
+TUNE_TAIL_SHAPE = (37, 99)
+TUNE_QUICK_CELLS = ("fixed3_L100", "fixed10_L100", "fixed30_L100")
+# ``_timeit``: a warm-up and 3 timed calls of each side a cell, one K8
+# call a timed call in the chooser bench
+TUNE_CALLS = 4
+TUNE_LAUNCH_LINE = re.compile(
+    r"tune: (\d+) wire dispatches on cuda; launches consensus_wire_full "
+    r"(\d+), consensus_wire_packed2 (\d+), tune_combine (\d+)")
+ROUTER_PRIORS = ("link_mbps", "overhead_s", "dispatch_wall_s",
+                 "host_mcells_per_s", "filter_keep_rate")
+
+
+def tune_combine_inputs(n: int, L: int, dev) -> dict:
+    """K8's inputs at (n, L), name -> (x, y) on ``dev``: ``sweep``, the
+    chooser bench's own arrays (0-40 from seeds 5 and 6); ``bytes``,
+    random bytes 0-255; ``wrap``, bytes 250-255, half the cells equal (min
+    + 3 wraps past 255 at 253-255); ``unaligned``, the sweep's arrays 1
+    byte past a 16-byte boundary of their buffers (the kernel's byte
+    path)."""
+    import torch
+
+    rng = np.random.default_rng(n * L)
+    sweep = tuple(np.random.default_rng(s).integers(0, 41, (n, L),
+                                                    dtype=np.uint8)
+                  for s in (5, 6))
+    full = tuple(rng.integers(0, 256, (n, L), dtype=np.uint8)
+                 for _ in range(2))
+    wx = rng.integers(250, 256, (n, L), dtype=np.uint8)
+    wy = np.where(rng.random((n, L)) < 0.5, wx,
+                  rng.integers(250, 256, (n, L), dtype=np.uint8))
+    out = {name: tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                       for a in pair)
+           for name, pair in (("sweep", sweep), ("bytes", full),
+                              ("wrap", (wx, wy.astype(np.uint8))))}
+
+    def unaligned(a):
+        buf = torch.empty(a.size + 16, dtype=torch.uint8, device=dev)
+        view = buf[1:1 + a.size].view(n, L)
+        view.copy_(torch.from_numpy(a).to(dev))
+        return view
+
+    out["unaligned"] = tuple(unaligned(a) for a in sweep)
+    return out
+
+
+def check_tune_combine_kernel(dev, shape, timed: bool) -> dict:
+    """K8 (``ops/tune_combine.tune_combine``) against its plain version on
+    the card and the chooser bench's numpy expression, exactly, on every
+    input of :func:`tune_combine_inputs` at ``shape``; with ``timed`` also
+    its times beside the bound and the plain version's (no single PyTorch
+    call computes it: library "n/a"). Launches made here are not the main
+    path's: the count is restored."""
+    import torch
+
+    from fgumi_tpu_torch.ops import tune_combine as TC
+
+    n, L = shape
+    launches0 = TC.TUNE_COMBINE_LAUNCHES
+    inputs = tune_combine_inputs(n, L, dev)
+    err = 0
+    for name, (x, y) in inputs.items():
+        got = TC.tune_combine(x, y)
+        want = TC.tune_combine_plain(x, y)
+        torch.cuda.synchronize()
+        a, b = x.cpu().numpy(), y.cpu().numpy()
+        ref = np.where(a == b, np.minimum(a, b) + 3,
+                       np.maximum(a, b) - np.minimum(a, b))
+        check(got.dtype == torch.uint8 and tuple(got.shape) == (n, L),
+              f"K8 {name} {n}x{L}: output {got.dtype} {tuple(got.shape)}")
+        diff = int((got.int() - want.int()).abs().max())
+        check(diff == 0, f"K8 {name} {n}x{L}: kernel and plain differ "
+                         f"(max |diff| {diff})")
+        check(np.array_equal(got.cpu().numpy(), ref),
+              f"K8 {name} {n}x{L}: kernel differs from numpy's expression")
+        err = max(err, diff)
+    wx, wy = inputs["wrap"]
+    check(bool(((wx == wy) & (wx >= 253)).any()),
+          f"K8 wrap {n}x{L}: no cell wraps")
+    check(TC.TUNE_COMBINE_LAUNCHES == launches0 + len(inputs),
+          "K8: a launch was not counted")
+    TC.TUNE_COMBINE_LAUNCHES = launches0
+    res = {"shape": [n, L], "max_abs_err": err, "bytes": 3 * n * L,
+           # 32-bit lane operations: min, max, compare, add, subtract and
+           # the select (and, and-not, or) a 4-cell word
+           "ops": 2 * n * L, "geometry": TC.launch_geometry(n * L),
+           "geometry_unaligned": TC.launch_geometry(n * L, vector=False),
+           "registers": ptxas_registers("tune_combine_kernel")}
+    print(f"check K8 tune_combine {n}x{L}: exact against plain and numpy "
+          f"on {', '.join(inputs)}; geometry {res['geometry']}, unaligned "
+          f"{res['geometry_unaligned']}, {res['registers']} registers",
+          flush=True)
+    if timed:
+        x, y = inputs["sweep"]
+        _time(res, lambda: TC.tune_combine(x, y),
+              lambda: TC.tune_combine_plain(x, y), TC,
+              "TUNE_COMBINE_LAUNCHES", "tune_combine_kernel")
+        res["library_ms"] = None
+        print(f"time K8 tune_combine {n}x{L} " + json.dumps(
+            {k: res[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "call_ms", "loop_ms", "plain_call_ms")}),
+            flush=True)
+    return res
+
+
+def start_tune(work) -> dict:
+    """``tune --quick --device cuda`` into ``work`` in a child process,
+    waited for on a thread (so the phases in this process go on meanwhile);
+    returns its handle for :func:`tune_phase`. The child's environment is
+    this process's at the call."""
+    import threading
+
+    paths = {k: os.path.join(work, f"tune_{k}.json")
+             for k in ("profile", "atlas")}
+    argv = ["tune", "--quick", "--device", "cuda", "-o", paths["profile"],
+            "--atlas", paths["atlas"]]
+    t0 = time.monotonic()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "fgumi_tpu_torch", *argv],
+        stdin=subprocess.DEVNULL, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, **_child_kwargs())
+    # a check failing before the tune phase must not leave it behind
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    done = {}
+
+    def wait():
+        try:
+            done["stderr"] = proc.communicate(timeout=600)[1]
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            done["stderr"] = proc.communicate()[1]
+        done["wall_s"] = time.monotonic() - t0
+
+    thread = threading.Thread(target=wait, daemon=True)
+    thread.start()
+    return {"proc": proc, "thread": thread, "done": done, "argv": argv,
+            **paths}
+
+
+def _tune_outputs(tune) -> dict:
+    """The tune child's end: exit 0, both files valid under the port's
+    validator, the 3 quick cells with both rates and a winner, K1 launched
+    on every timed device call and K8 ``TUNE_CALLS`` times (its launch
+    line). Returns the summary of the ``tune`` line."""
+    import torch
+
+    from fgumi_tpu_torch.tune.profile import load_profile
+
+    tune["thread"].join(660)
+    done = tune["done"]
+    check("stderr" in done, "tune: the child did not end")
+    stderr = done["stderr"]
+    check(tune["proc"].returncode == 0,
+          f"tune: exit {tune['proc'].returncode}: {stderr[-3000:]}")
+    check("device feeder gate timed out" not in stderr,
+          "tune: the feeder's gate timed out")
+    m = TUNE_LAUNCH_LINE.search(stderr)
+    check(m is not None, f"tune: no launch line: {stderr[-2000:]}")
+    dispatches, k1, k1p2, k8 = (int(g) for g in m.groups())
+    calls = TUNE_CALLS * len(TUNE_QUICK_CELLS)
+    check(dispatches == k1 == calls and k1p2 == 0,
+          f"tune: {dispatches} dispatches, K1 {k1}, K1-p2 {k1p2}: K1 must "
+          f"launch on each of the {calls} timed device calls")
+    check(k8 == TUNE_CALLS, f"tune: K8 launched {k8} times, not "
+                            f"{TUNE_CALLS}")
+    prof = load_profile(tune["profile"])
+    with open(tune["atlas"]) as f:
+        atlas = json.load(f)
+    check(atlas.get("kind") == "fgumi-tpu-crossover-atlas"
+          and atlas.get("schema_version") == 1, "tune: not an atlas")
+    cells = atlas["cells"]
+    check(tuple(c["name"] for c in cells) == TUNE_QUICK_CELLS,
+          f"tune: atlas cells {[c['name'] for c in cells]}")
+    for c in cells:
+        check(c["device_rows_per_sec"] > 0 and c["host_rows_per_sec"] > 0
+              and c["winner"] in ("device", "host"),
+              f"tune: atlas cell {c}")
+    fp = prof["fingerprint"]
+    check(fp.get("torch_backend") == "cuda"
+          and fp.get("device_count") == torch.cuda.device_count(),
+          f"tune: fingerprint {fp}")
+    check(prof["knobs"].get("mesh") == ("auto" if torch.cuda.device_count()
+                                        > 1 else "off"),
+          f"tune: mesh knob {prof['knobs']}")
+    router = dict(prof["priors"]["router"])
+    # the router's link EWMA: bytes uploaded over the feeder's staging
+    # copy and launch of a dispatch, not PCIe alone
+    router["link_mbps_is"] = "the feeder's staging copy and launch"
+    return {
+        "cells": {c["name"]: {k: c[k] for k in (
+            "rows", "families", "device_rows_per_sec", "host_rows_per_sec",
+            "device_vs_host", "winner")} for c in cells},
+        "crossover": atlas["crossover"], "knobs": prof["knobs"],
+        "choosers": prof["priors"].get("choosers"), "router": router,
+        "dispatches": dispatches, "k1_launches": k1, "k8_launches": k8,
+        "child_wall_s": done["wall_s"]}
+
+
+def _tune_replay(work, report_path) -> dict:
+    """``tune --replay`` of one earlier cuda run's report, in this process
+    (it loads no profile and starts no kernel): its router priors must be
+    that report's ``device.routing`` values."""
+    from fgumi_tpu_torch import cli
+    from fgumi_tpu_torch.tune.profile import load_profile
+
+    out = os.path.join(work, "tune_replay.json")
+    rc = cli.main(["tune", "--replay", report_path, "-o", out, "--atlas",
+                   "", "--device", "cuda"])
+    check(rc == 0, f"tune --replay: exit {rc}")
+    prof = load_profile(out)
+    with open(report_path) as f:
+        routing = json.load(f)["device"]["routing"]
+    want = {k: round(routing[k], 6) for k in ROUTER_PRIORS
+            if isinstance(routing.get(k), (int, float)) and routing[k] > 0}
+    check(prof["source"] == "replay" and prof["priors"]["router"] == want,
+          f"tune --replay: priors {prof['priors']['router']}, the report's "
+          f"routing {want}")
+    return {"router": want, "knobs": prof["knobs"]}
+
+
+def _profile_runs(prof_path, prof, refs, work) -> dict:
+    """Each reference run's argv again under ``--profile``, in children at
+    once: exit 0, the reference's records, the run report's ``profile``
+    section (the knobs applied, the router seeded) and
+    ``device.routing.prior_source`` "profile", the run's kernels launched,
+    and no gate timeout in its log."""
+    procs = {}
+    for name, (command, inp, flags, ref) in refs.items():
+        out = os.path.join(work, f"tune_profile_{name}.bam")
+        argv = ["--profile", prof_path, "--run-report", out + ".report.json",
+                command, "-i", inp, "-o", out, "--device", "cuda",
+                "--stats-json", out + ".json", *flags]
+        procs[name] = (out, subprocess.Popen(
+            [sys.executable, "-m", "fgumi_tpu_torch", *argv],
+            stdin=subprocess.DEVNULL, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, **_child_kwargs()))
+    runs = {}
+    for name, (out, proc) in procs.items():
+        try:
+            stderr = proc.communicate(timeout=600)[1]
+        except subprocess.TimeoutExpired:
+            for _, p in procs.values():
+                p.kill()
+            raise
+        command, _, _, ref = refs[name]
+        check(proc.returncode == 0,
+              f"profile {name}: exit {proc.returncode}: {stderr[-2000:]}")
+        check("gate timed out" not in stderr,
+              f"profile {name}: the feeder's gate timed out")
+        check(records(out) == records(ref["out"]),
+              f"profile {name}: records differ from the cuda run's")
+        with open(out + ".report.json") as f:
+            report = json.load(f)
+        with open(out + ".json") as f:
+            st = json.load(f)
+        sec = report.get("profile") or {}
+        check(sec.get("path") == prof_path
+              and sorted(sec.get("knobs_applied", [])) == sorted(
+                  prof["knobs"]) and sec.get("seeded_router") is True,
+              f"profile {name}: report section {sec}")
+        routing = report.get("device", {}).get("routing", {})
+        check(routing.get("prior_source") == "profile",
+              f"profile {name}: prior source {routing.get('prior_source')}")
+        kernels = ("consensus_wire_full",) if command == "simplex" else (
+            "consensus_wire_resident", "duplex_combine")
+        check(all(st["launches"][k] > 0 for k in kernels),
+              f"profile {name}: launches {st['launches']}")
+        runs[name] = {"wall_s": st["wall_s"], "ref_wall_s": ref["wall_s"],
+                      "launches": {k: st["launches"][k] for k in kernels},
+                      "knobs_applied": sec["knobs_applied"],
+                      "fingerprint_mismatch": sec["fingerprint_mismatch"],
+                      "records_identical": True}
+    return runs
+
+
+def _profile_turns(prof_path, refs, work) -> dict:
+    """Each reference run's argv in children one at a time, without and
+    with ``--profile`` in turns (plain, profile, profile, plain): the
+    records of every run equal the reference's; each run's own wall
+    (``--stats-json``) and its child's."""
+    turns = {}
+    for name, (command, inp, flags, ref) in refs.items():
+        walls = {"plain": [], "profile": []}
+        for i, kind in enumerate(("plain", "profile", "profile", "plain")):
+            out = os.path.join(work, f"tune_turn_{name}_{i}.bam")
+            pre = ["--profile", prof_path] if kind == "profile" else []
+            t0 = time.monotonic()
+            proc = _child(pre + [command, "-i", inp, "-o", out, "--device",
+                                 "cuda", "--stats-json", out + ".json",
+                                 *flags], timeout=600)
+            child_s = time.monotonic() - t0
+            check(proc.returncode == 0 and "gate timed out" not in
+                  proc.stderr, f"profile turns {name} {kind}: exit "
+                  f"{proc.returncode}: {proc.stderr[-2000:]}")
+            check(records(out) == records(ref["out"]),
+                  f"profile turns {name} {kind}: records differ")
+            with open(out + ".json") as f:
+                walls[kind].append({"wall_s": json.load(f)["wall_s"],
+                                    "child_s": child_s})
+            os.unlink(out)
+        turns[name] = walls
+    return turns
+
+
+def tune_refs(paths, e2e, duplexes) -> dict:
+    """The cuda runs the tune phase's profile runs are held to: name ->
+    (command, input, flags, its summary)."""
+    return {"longtail_200k_fast": ("simplex", paths["longtail_200k"], [],
+                                   e2e["longtail_200k"]["fast"]),
+            "duplex_240k": ("duplex", paths["duplex_240k"], [],
+                            duplexes["duplex_240k"]["cuda"])}
+
+
+def tune_phase(work, tune, refs, report_path, dev, turns=False) -> tuple:
+    """The tuner on the card: K8 against its plain version at both of the
+    sweep's shapes (and an odd one for the 16-byte path's tail) and timed;
+    the ``tune --quick`` child's end (:func:`_tune_outputs`); ``tune
+    --replay`` of ``report_path`` (:func:`_tune_replay`); the ``refs`` runs
+    under the tuned profile (:func:`_profile_runs`), and with ``turns``
+    also each without and with it in turns (:func:`_profile_turns`).
+    Prints the ``tune`` line; returns (its summary, K8's ``kernels``
+    entry)."""
+    t0 = time.monotonic()
+    k8 = {shape: check_tune_combine_kernel(dev, shape, timed=True)
+          for shape in TUNE_SHAPES}
+    check_tune_combine_kernel(dev, TUNE_TAIL_SHAPE, timed=False)
+    out = _tune_outputs(tune)
+    out["replay"] = _tune_replay(work, report_path)
+    from fgumi_tpu_torch.tune.profile import load_profile
+
+    prof = load_profile(tune["profile"])
+    out["feeder_depth"] = prof["knobs"].get("feeder_depth")
+    out["profile_runs"] = _profile_runs(tune["profile"], prof, refs, work)
+    if turns:
+        out["profile_turns"] = _profile_turns(tune["profile"], refs, work)
+    out["phase_s"] = time.monotonic() - t0
+    print("tune " + json.dumps(out), flush=True)
+    quick, full = (k8[s] for s in TUNE_SHAPES)
+    entry = kernel_entry(
+        "tune_combine", quick, out["k8_launches"], REPLACES_TUNE_COMBINE,
+        "tune_quick", TUNE_SOURCE, shape=quick["shape"],
+        full_shape=full["shape"], full_ms=full["ms"],
+        full_plain_ms=full["plain_ms"], full_bound_ms=full["bound_ms"])
+    return out, entry
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5597,9 +5999,9 @@ def main():
         fail(f"the fgumi_tpu_torch package is missing: {e}", 2)
     if sys.argv[1:] not in ([], ["--phase", "mapped"], ["--phase", "qc"],
                             ["--phase", "serve"], ["--phase", "fleet"],
-                            ["--phase", "route"]):
+                            ["--phase", "route"], ["--phase", "tune"]):
         fail(f"unknown arguments {sys.argv[1:]} (none, or --phase mapped, "
-             "qc, serve, fleet or route)", 2)
+             "qc, serve, fleet, route or tune)", 2)
     # --phase mapped: the mapped phase alone, with fixed5_1M (whose
     # --device-filter run device_filter_env compares with); --phase qc: the
     # mapped chain and amplicon_paired's fast paired group, then the qc
@@ -5644,6 +6046,9 @@ def main():
     elif phase == "route":
         inputs = {k: (_simulate_duplex, DUPLEX[k]) if k in DUPLEX
                   else (_simulate, INPUTS[k]) for k in ROUTE_INPUTS}
+    elif phase == "tune":
+        inputs = {"longtail_200k": (_simulate, INPUTS["longtail_200k"]),
+                  "duplex_240k": (_simulate_duplex, DUPLEX["duplex_240k"])}
     else:
         inputs = {"fixed5_1M": (_simulate, INPUTS["fixed5_1M"]),
                   **_mapped_inputs("")[0]}
@@ -5660,6 +6065,9 @@ def main():
         sims = {k: pool.submit(fn, paths[k], kw)
                 for k, (fn, kw) in inputs.items()}
         dev = _build_all(torch, native, cuda_kernel)
+        # the tuner's child beside the kernel checks at the test shapes and
+        # the inputs' simulation (its checks are the tune phase's)
+        tune = start_tune(work) if every_phase else None
 
         if every_phase:
             hamming_phase_test_shapes(dev)
@@ -5724,6 +6132,8 @@ def main():
             # the route phase runs while the mapped inputs finish building
             route = route_phase(paths, work, route_clean_runs(
                 paths, work, e2e, duplexes))
+            _, k8 = tune_phase(work, tune, tune_refs(paths, e2e, duplexes),
+                               route["R4"]["report_path"], dev)
             fused = e2e["fixed5_1M"]["fused"]
             paired = groups["amplicon_paired_paired_fast"]
         elif phase == "mapped":
@@ -5757,12 +6167,25 @@ def main():
                 "duplex_240k", paths["duplex_240k"], work, "cuda", [])}}
             route = route_phase(paths, work, route_clean_runs(
                 paths, work, e2e, duplexes))
+        elif phase == "tune":
+            # the tuner alone on the card, then the cuda runs it is held
+            # to (the simplex run's report is the replay's evidence)
+            ready(*TUNE_INPUTS)
+            tune = start_tune(work)
+            tune["thread"].join(660)
+            src = route_run("tune_source", "simplex", paths["longtail_200k"],
+                            [], work, {})
+            e2e = {"longtail_200k": {"fast": src}}
+            duplexes = {"duplex_240k": {"cuda": duplex_run(
+                "duplex_240k", paths["duplex_240k"], work, "cuda", [])}}
+            _, k8 = tune_phase(work, tune, tune_refs(paths, e2e, duplexes),
+                               src["out"] + ".report.json", dev, turns=True)
         if phase == "qc":
             ready(*sims)
             mapped = {"mapped_chain_400k": mapped_chain_case(paths, work)}
             paired = group_case("amplicon_paired", "paired",
                                 paths["amplicon_paired"], work, "fast")
-        elif phase not in ("serve", "fleet", "route"):
+        elif phase not in ("serve", "fleet", "route", "tune"):
             ready(*mapped_inputs)
             mapped = mapped_phase(paths, work, fused)
         if phase in (None, "qc"):
@@ -5773,7 +6196,7 @@ def main():
     if every_phase:
         entries = earlier_kernel_entries(dev, e2e, groups, pipes, duplexes,
                                          codecs, staged, dedup)
-    elif phase in ("serve", "fleet", "route"):
+    elif phase in ("serve", "fleet", "route", "tune"):
         entries = []
     elif phase == "qc":
         k4 = kernel_phase_main_path(
@@ -5788,7 +6211,7 @@ def main():
             "consensus_wire_filter", k1f["k1f_fixed"],
             fused["launches"]["consensus_wire_filter"], REPLACES_FILTER,
             "fixed5_1M_fused")]
-    if phase not in ("serve", "fleet", "route"):
+    if phase not in ("serve", "fleet", "route", "tune"):
         entries.append(kernel_entry(
             "consensus_wire_full", check_k1_mapped(
                 mapped["mapped_chain_400k"], dev),
@@ -5796,6 +6219,8 @@ def main():
             REPLACES_FULL, "mapped_chain_400k"))
     if phase in (None, "serve"):
         entries.append(k7)
+    if phase in (None, "tune"):
+        entries.append(k8)
     if phase is None:
         # the fleet phase's launches beside each kernel's main-path count:
         # the whales' shards (each its own --stats-json) and daemon a's K7;

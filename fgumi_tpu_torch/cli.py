@@ -6,7 +6,13 @@
 codec-reads|mapped-reads|fastq-reads|consensus-reads|correct-reads`` and
 the job service: ``serve`` (a warm daemon running submitted commands, each
 in its own telemetry scope, with the health canary K7 and the device
-breaker; ``serve/``), ``submit``, ``jobs`` and ``stats``.
+breaker; ``serve/``), ``submit``, ``jobs`` and ``stats``; and ``tune``,
+the autotuner: it times the wire kernel K1 against the native f64 host
+engine over a simulated matrix and the tuner's combine K8 against numpy,
+and writes a deployment profile and a crossover atlas (``tune/``). The
+global ``--profile`` (or ``FGUMI_TPU_PROFILE``) loads such a profile once
+a process, before any other knob is read: it fills the ``FGUMI_TPU_*``
+variables left unset and seeds the router's and the choosers' priors.
 
 ``correct``, ``fastq``, ``zipper``, ``merge``, ``clip``, ``downsample``,
 ``review``, ``duplex-metrics`` and ``simplex-metrics`` are host commands
@@ -75,9 +81,9 @@ flags (``--scheduler``, ``--deadlock-timeout``, ``--deadlock-recover``,
 the reference maps them. Options of the reference CLI this port does not
 implement yet exit 2 with "not yet ported" instead of being ignored, and
 so do their environment forms (``FGUMI_TPU_MESH`` and ``FGUMI_TPU_SP``
-where they would shard, ``FGUMI_TPU_PROFILE``; a mesh value the reference
-rejects gets its knob line). ``FGUMI_TPU_DEVICE_FILTER`` is read as the
-reference reads it: ``1``/``true``/``on``/``force`` stand for
+where they would shard, also a mesh a profile filled; a mesh value the
+reference rejects gets its knob line). ``FGUMI_TPU_DEVICE_FILTER`` is read
+as the reference reads it: ``1``/``true``/``on``/``force`` stand for
 ``--device-filter``, ``0``/``false``/``off`` keep the fused filter on
 full columns (K1 in place of K1-f).
 """
@@ -512,10 +518,11 @@ def _add_simplex(sub):
     p.set_defaults(func=cmd_simplex)
 
 
-def _kernel_counters():
+def _kernel_counters(extra=None):
     """Every kernel's launches so far: this command's own tally inside a
     telemetry scope (so two daemon jobs at once never count each other's),
-    else the process-wide counters."""
+    else the process-wide counters. ``extra``: more counters, name ->
+    (module, counter)."""
     from .observe.scope import current_scope
     from .ops import combine, cuda_kernel, umi_hamming, wire
 
@@ -527,7 +534,7 @@ def _kernel_counters():
         "packed2_full": (wire, "PACKED2_LAUNCHES"),
         "duplex_combine": (combine, "DUPLEX_COMBINE_LAUNCHES"),
         "codec_combine": (combine, "CODEC_COMBINE_LAUNCHES"),
-        "umi_hamming": (umi_hamming, "HAMMING_LAUNCHES")}
+        "umi_hamming": (umi_hamming, "HAMMING_LAUNCHES"), **(extra or {})}
     scope = current_scope()
     if scope is None:
         return {name: getattr(m, c) for name, (m, c) in counters.items()}
@@ -3895,6 +3902,60 @@ def cmd_trace_merge(args, argv):
     return 0
 
 
+def _add_tune(sub):
+    p = sub.add_parser(
+        "tune",
+        help="Measure this host's device/host crossovers on a simulated "
+             "workload matrix and write a deployment profile (tuned knobs "
+             "+ measured router/chooser priors, loaded with "
+             "--profile/FGUMI_TPU_PROFILE) plus a crossover atlas")
+    p.add_argument("-o", "--output", default="deploy_profile.json",
+                   metavar="PATH", help="deployment profile to write")
+    p.add_argument("--atlas", default="TUNE_ATLAS.json", metavar="PATH",
+                   help="crossover atlas to write ('' disables)")
+    p.add_argument("--quick", action="store_true",
+                   help="CI-sized sweep: the three fixed-depth crossover "
+                        "cells only, small pileups (seconds, not minutes)")
+    p.add_argument("--replay", action="append", default=None,
+                   metavar="JSON", dest="replay",
+                   help="derive the profile from recorded evidence instead "
+                        "of sweeping: run-report JSONs (device.routing "
+                        "EWMAs) and/or microbench JSONs (tune_cells); "
+                        "repeat per file")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="the device side of the sweep: cuda (the wire "
+                        "kernel K1 and the combine K8; exits 2 without "
+                        "CUDA) or cpu (their plain PyTorch versions)")
+    p.set_defaults(func=cmd_tune)
+
+
+def cmd_tune(args, argv):
+    from .ops import tune_combine
+    from .ops.kernel import DEVICE_STATS
+    from .tune.autotune import run_autotune
+    from .tune.profile import ProfileError
+
+    if _no_cuda("tune", args.device):
+        return 2
+    extra = {"tune_combine": (tune_combine, "TUNE_COMBINE_LAUNCHES")}
+    counters0 = _kernel_counters(extra)
+    try:
+        rc = run_autotune(args.output, args.atlas or None, quick=args.quick,
+                          replay_paths=args.replay, device=args.device)
+    except ProfileError as e:
+        log.error("%s", e)
+        return 2
+    if not args.replay:
+        counters = _kernel_counters(extra)
+        launched = {k: counters[k] - counters0[k]
+                    for k in ("consensus_wire_full", "consensus_wire_packed2",
+                              "tune_combine")}
+        log.info("tune: %d wire dispatches on %s; launches %s",
+                 DEVICE_STATS.snapshot()["dispatches"], args.device,
+                 ", ".join(f"{k} {v}" for k, v in launched.items()))
+    return rc
+
+
 # ---------------------------------------------------------------- serving
 
 def _add_serve(sub):
@@ -4080,6 +4141,9 @@ def cmd_serve(args, argv):
         # the daemon's spelling of FGUMI_TPU_COALESCE_WINDOW_MS
         os.environ["FGUMI_TPU_COALESCE_WINDOW_MS"] = \
             str(args.coalesce_window_ms)
+        from .tune import profile as _profile
+
+        _profile.release_filled("FGUMI_TPU_COALESCE_WINDOW_MS")
     if args.report_dir:
         try:
             os.makedirs(args.report_dir, exist_ok=True)
@@ -4651,11 +4715,17 @@ def _add_global_options(parser):
              "thread's stack, metrics and device snapshots) here on an "
              "unhandled exception, resource exhaustion, a refuted output "
              "audit and SIGTERM (also FGUMI_TPU_FLIGHT)")
+    parser.add_argument(
+        "--profile", default=None, metavar="PATH",
+        help="load a deployment profile (tune output) once a process: its "
+             "knob values fill the FGUMI_TPU_* variables not explicitly set "
+             "(explicit variables and flags win) and its measured priors "
+             "seed the router and the strand-combine choosers (also "
+             "FGUMI_TPU_PROFILE); a window it fills does not arm the "
+             "opt-in coalescer, and a mesh other than 'off' exits 2")
     g = parser.add_argument_group(
         "not yet ported / JAX-only",
         "reference options this port refuses (exit 2)")
-    g.add_argument("--profile", default=None, metavar="PATH",
-                   help="deployment profile (not yet ported)")
     g.add_argument("--mesh", default=None, metavar="dpNxspM",
                    help="device mesh (not yet ported)")
     g.add_argument("--xla-profile", default=None, metavar="DIR",
@@ -4666,8 +4736,6 @@ def _add_global_options(parser):
 
 #: global options refused with exit 2: (dest, flag, reason)
 _GLOBAL_REFUSED = (
-    ("profile", "--profile", "not yet ported (deployment profiles come "
-                             "with serving and the tuner)"),
     ("mesh", "--mesh", "not yet ported (multi-GPU)"),
     ("xla_profile", "--xla-profile",
      "JAX-only (a jax.profiler capture); use --trace"),
@@ -4676,46 +4744,32 @@ _GLOBAL_REFUSED = (
 )
 
 
-_MESH_GRAMMAR = ("'auto', 'off', or 'dpNxspM' (e.g. dp4xsp2) with dp, "
-                 "sp >= 1")
-
-
-def _knob_error(knob: str, token, problem: str, grammar: str) -> str:
-    """The reference's knob diagnostic (fgumi_tpu/utils/knobs.py)."""
-    return f"{knob}={token!r}: {problem}; expected {grammar}"
-
-
 def _env_refusal():
     """The line refusing an environment form of a refused global option,
     or None. ``FGUMI_TPU_MESH`` parses as the reference parses it
-    (fgumi_tpu/parallel/mesh.py ``parse_mesh_spec``): the values that
-    build no mesh there run here, a value it rejects gets its knob line,
-    and a mesh shape is not yet ported; ``FGUMI_TPU_SP`` above 1 asks for
-    a read-axis split (any other value is sp = 1 on the reference too);
-    any ``FGUMI_TPU_PROFILE`` names a deployment profile."""
-    import re
+    (``parallel/mesh.parse_mesh_spec``): the values that build no mesh
+    there run here, a value it rejects gets its knob line, and ``auto`` or
+    a mesh shape is not yet ported (a line that names the deployment
+    profile when the profile filled the variable); ``FGUMI_TPU_SP`` above 1
+    asks for a read-axis split (any other value is sp = 1 on the reference
+    too)."""
+    from .parallel import MeshConfigError
+    from .parallel.mesh import parse_mesh_spec
+    from .tune import profile as _profile
 
     spec = os.environ.get("FGUMI_TPU_MESH")
-    s = str(spec).strip().lower() if spec is not None else ""
-    if s not in ("", "off", "none", "0", "1"):
-        m = re.match(r"^dp(\d+)(?:xsp(\d+))?$", s)
-        if s != "auto" and not m:
-            return _knob_error("FGUMI_TPU_MESH", spec,
-                               f"unrecognized shape {s!r}", _MESH_GRAMMAR)
-        if m and (int(m.group(1)) < 1
-                  or (m.group(2) is not None and int(m.group(2)) < 1)):
-            return _knob_error(
-                "FGUMI_TPU_MESH", spec,
-                f"dp={int(m.group(1))} sp={int(m.group(2) or 1)} below "
-                "the >= 1 floor", _MESH_GRAMMAR)
-        return f"FGUMI_TPU_MESH={spec}: not yet ported (multi-GPU)"
+    try:
+        mesh = parse_mesh_spec(spec)
+    except MeshConfigError as e:
+        return str(e)
+    if mesh is not None:
+        source = ""
+        if _profile.filled_by_profile("FGUMI_TPU_MESH"):
+            source = f" (from profile {_profile.applied_info()['path']})"
+        return f"FGUMI_TPU_MESH={spec}{source}: not yet ported (multi-GPU)"
     sp = os.environ.get("FGUMI_TPU_SP", "1")
     if sp.isdigit() and int(sp) > 1:
         return f"FGUMI_TPU_SP={sp}: not yet ported (multi-GPU)"
-    profile = os.environ.get("FGUMI_TPU_PROFILE")
-    if profile:
-        return (f"FGUMI_TPU_PROFILE={profile}: not yet ported (deployment "
-                "profiles come with serving and the tuner)")
     return None
 
 
@@ -4768,6 +4822,7 @@ def build_parser():
     _add_compare(sub)
     _add_simulate(sub)
     _add_trace_merge(sub)
+    _add_tune(sub)
     _add_serve(sub)
     _add_submit(sub)
     _add_stats_command(sub)
@@ -4921,7 +4976,13 @@ def main(argv=None):
     # into this one (the staged pipeline forwards them to its stages)
     set_atomic_enabled(not args.no_atomic_output)
     set_audit_output(bool(args.audit_output))
-    rc = _refuse_globals(args) or _apply_pipeline_compat(args)
+    # the deployment profile (--profile / FGUMI_TPU_PROFILE), at depth 0
+    # before the telemetry scope and before the refusals, so that every
+    # later read of the environment (the mesh refusal's too) sees the knobs
+    # it fills; process-once (a daemon job re-entering main must not
+    # re-apply or re-warn). A bad profile exits 2 like any knob error.
+    rc = _apply_profile(args) if depth == 0 else 0
+    rc = rc or _refuse_globals(args) or _apply_pipeline_compat(args)
     if rc:
         return rc
     if depth > 0:
@@ -4946,17 +5007,35 @@ def main(argv=None):
             publish_to_global(scope)
 
 
+def _apply_profile(args) -> int:
+    """Load and apply the deployment profile named by ``--profile`` or
+    ``FGUMI_TPU_PROFILE`` (``tune/profile.maybe_apply_from_env``); 2 with
+    its one line on a bad profile, else 0."""
+    from .tune import profile as _profile
+
+    try:
+        _profile.maybe_apply_from_env(args.profile)
+    except _profile.ProfileError as e:
+        log.error("%s", e)
+        return 2
+    return 0
+
+
 def _main_scoped(args, argv):
     """The outermost invocation's body: the telemetry lifecycle (flight
     recorder, trace, heartbeat, run report) around the dispatch."""
     from .observe.flight import FLIGHT, install_signal_dump
     from .observe.scope import command_line_override
+    from .tune import profile as _profile
 
     trace_path, report_path, hb_s = _telemetry_config(args)
     # the process's resource governor: budget rebalancing and the memory
     # and disk watermarks (idempotent: one thread a process;
     # FGUMI_TPU_GOVERNOR=0 keeps every budget static)
     GOVERNOR.maybe_start()
+    # the profile's outcome into this invocation's scoped registry
+    # (application itself is process-once)
+    _profile.stamp_metrics()
     if args.flight_dump_dir:
         FLIGHT.configure(args.flight_dump_dir)
     FLIGHT.note("command.start", command=args.command)

@@ -7,10 +7,12 @@ first use and loaded with ctypes; :func:`build` compiles them all, one
 ``nvcc`` per source, started together. ``csrc/umi_hamming.cu`` (K4) has its
 wrapper in ``ops/umi_hamming.py``, ``csrc/strand_combine.cu`` (the strand
 combines K5 and K6) theirs in ``ops/combine.py``, ``csrc/canary.cu`` (the
-device canary K7) its own in ``ops/canary.py``. ``csrc/consensus_wire.cu``
-holds three kernels, all one warp per consensus read on a persistent grid
-(their launch geometry: :func:`full_launch_geometry`,
-:func:`filter_launch_geometry`, :func:`resident_launch_geometry`):
+device canary K7) and ``csrc/tune_combine.cu`` (the tuner's combine K8)
+their own in ``ops/canary.py`` and ``ops/tune_combine.py``.
+``csrc/consensus_wire.cu`` holds three kernels, all one warp per consensus
+read on a persistent grid (their launch geometry:
+:func:`full_launch_geometry`, :func:`filter_launch_geometry`,
+:func:`resident_launch_geometry`):
 
 - K1 ``consensus_wire_full`` — the Pallas ``_full_jit``/``call_full``
   (kind ``segwfp``); plain PyTorch version ``ops/wire.wire_full``;
@@ -67,7 +69,8 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 SOURCES = {"consensus_wire": os.path.join(_CSRC, "consensus_wire.cu"),
            "umi_hamming": os.path.join(_CSRC, "umi_hamming.cu"),
            "strand_combine": os.path.join(_CSRC, "strand_combine.cu"),
-           "canary": os.path.join(_CSRC, "canary.cu")}
+           "canary": os.path.join(_CSRC, "canary.cu"),
+           "tune_combine": os.path.join(_CSRC, "tune_combine.cu")}
 _BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)),
                           "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

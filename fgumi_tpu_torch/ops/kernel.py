@@ -812,11 +812,18 @@ class DeviceFeeder:
 
     def drain(self, timeout: float = None) -> bool:
         """Run the queue dry and let the thread exit (the serve daemon's
-        drain). True when it emptied within ``timeout`` seconds. A later
-        submit starts a fresh thread."""
+        drain). True when it emptied and its thread ended within
+        ``timeout`` seconds. A later submit starts a fresh thread.
+
+        The thread's end is waited for, not only the queue's: woken here,
+        a thread that has run this process's launches and still runs when
+        the interpreter finalizes dies in it, and its torch thread state
+        with it, which can abort the process (SIGABRT, "terminate called
+        without an active exception") after a clean shutdown."""
         deadline = None if timeout is None else time.monotonic() + timeout
         with self._cv:
             self._exit = True
+            thread = self._thread
             self._cv.notify_all()
             while self._q or self._active:
                 left = None if deadline is None \
@@ -824,7 +831,11 @@ class DeviceFeeder:
                 if left is not None and left <= 0:
                     return False
                 self._cv.wait(min(left, 0.5) if left is not None else 0.5)
-        return True
+        if thread is None or thread is threading.current_thread():
+            return True
+        thread.join(None if deadline is None
+                    else max(deadline - time.monotonic(), 0.0))
+        return not thread.is_alive()
 
     def _gated_locked(self, depth: int, budget: int) -> bool:
         head = self._q[0][2]

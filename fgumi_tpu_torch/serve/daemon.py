@@ -198,9 +198,9 @@ class JobService:
         """Pay the cold-start costs once, before the first job: import
         torch, create the CUDA context, and build (at first use) and load
         every kernel library of the port — the consensus kernels, K4, the
-        strand combines and the canary K7. Returns the seconds it took.
-        Raises on any failure (the CLI exits 2 with the line): a daemon
-        never serves cold behind a warning."""
+        strand combines, the canary K7 and the tuner's combine K8. Returns
+        the seconds it took. Raises on any failure (the CLI exits 2 with
+        the line): a daemon never serves cold behind a warning."""
         t0 = time.monotonic()
         import torch
 
@@ -209,13 +209,15 @@ class JobService:
                                "--no-warmup to serve jobs that run with "
                                "--device cpu)")
         torch.cuda.init()
-        from ..ops import canary, combine, cuda_kernel, umi_hamming
+        from ..ops import (canary, combine, cuda_kernel, tune_combine,
+                           umi_hamming)
 
         cuda_kernel.build()
         cuda_kernel._lib()
         umi_hamming._lib()
         combine._lib()
         canary._lib()
+        tune_combine._lib()
         secs = time.monotonic() - t0
         log.info("serve: warm-up done in %.2fs: CUDA on %s, kernel "
                  "libraries %s loaded", secs, torch.cuda.get_device_name(),

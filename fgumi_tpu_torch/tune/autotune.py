@@ -1,0 +1,408 @@
+"""Offline autotuner: sweep, crossover atlas, profile derivation (the JAX
+package's ``tune/autotune.py``).
+
+``tune`` runs a workload matrix built from simulate's family generators —
+family-depth distribution (fixed / lognormal / longtail), read length,
+filter keep-rate, duplex AB/BA balance — through the full-column wire
+dispatch (pad, the 1-byte wire, K1 on the card, the full resolve with its
+f64 oracle patch) on the device side and the native f64 host engine on the
+other. The device side calls the wire dispatch itself
+(``ConsensusKernel.device_call_segments_wire``), never a routed entry, so
+it times the kernel whatever ``FGUMI_TPU_ROUTE`` or
+``FGUMI_TPU_HOST_ENGINE`` say (the JAX package forces its device route for
+the same reason). Every wire dispatch feeds the live
+:data:`~fgumi_tpu_torch.ops.router.ROUTER` EWMAs through the ordinary
+resolve path, so the measured link/overhead/wall priors come from the
+production instrumentation, not a parallel stopwatch; host walls are fed
+explicitly (a direct engine call bypasses the router's observer).
+
+Outputs:
+
+- the **crossover atlas**: one cell per matrix point with rows/s on each
+  side + the winning route, plus a per-(distribution, read-length)
+  crossover depth interpolated where the winner flips.
+- the **deployment profile** (:mod:`.profile`): knobs derived from the
+  measured walls (coalesce window from the per-dispatch overhead, feeder
+  depth from the wall/overhead ratio, mesh from the visible card count)
+  and priors from the post-sweep router snapshot + the elementwise combine
+  micro-bench (K8 against numpy) for the two AdaptiveChoosers.
+
+``--replay`` skips the sweep and derives the same artifacts from recorded
+evidence instead: run-report ``device.routing`` sections and/or microbench
+``tune_cells`` JSON.
+"""
+
+import json
+import logging
+import time
+
+log = logging.getLogger("fgumi_tpu_torch")
+
+ATLAS_SCHEMA_VERSION = 1
+
+#: (name, family-depth distribution, mean depth, read length, keep rate,
+#: duplex AB fraction). The quick subset is the three family sizes whose
+#: device/host crossover the router must price; the full matrix adds the
+#: hostile-distribution and read-length axes.
+QUICK_MATRIX = [
+    ("fixed3_L100", "fixed", 3, 100, 0.9, 0.5),
+    ("fixed10_L100", "fixed", 10, 100, 0.9, 0.5),
+    ("fixed30_L100", "fixed", 30, 100, 0.9, 0.5),
+]
+FULL_MATRIX = QUICK_MATRIX + [
+    ("lognormal5_L100", "lognormal", 5, 100, 0.9, 0.5),
+    ("lognormal5_L100_keep30", "lognormal", 5, 100, 0.3, 0.5),
+    ("longtail3_L100", "longtail", 3, 100, 0.9, 0.5),
+    ("longtail3_L150", "longtail", 3, 150, 0.9, 0.7),
+    ("fixed10_L150", "fixed", 10, 150, 0.9, 0.5),
+]
+
+#: reads per cell — small on purpose: the sweep measures per-row rates
+#: and per-dispatch overheads, both of which converge at modest sizes.
+QUICK_ROWS = 6_000
+FULL_ROWS = 24_000
+
+
+def _timeit(fn, repeat=3, warmup=1):
+    for _ in range(warmup):
+        fn()
+    best = float("inf")
+    for _ in range(repeat):
+        t0 = time.monotonic()
+        fn()
+        best = min(best, time.monotonic() - t0)
+    return best
+
+
+def _cell_pileup(rng, dist, depth, L, n_rows):
+    """Family-consistent reads under one matrix cell's depth distribution
+    (shared template + 0.5% errors — the host engine's saturation
+    economics depend on family consistency)."""
+    import numpy as np
+
+    from ..simulate import _family_size
+
+    sizes = []
+    total = 0
+    while total < n_rows:
+        s = _family_size(rng, dist, depth)
+        sizes.append(s)
+        total += s
+    counts = np.asarray(sizes, dtype=np.int64)
+    starts = np.zeros(len(counts) + 1, dtype=np.int64)
+    np.cumsum(counts, out=starts[1:])
+    rows = int(starts[-1])
+    # the wire layout packs 4 positions a byte, so the device path requires
+    # L % 4 == 0 — pad the tail with no-op positions (N_CODE, qual 0)
+    L_pad = (L + 3) // 4 * 4
+    codes = np.full((rows, L_pad), 4, dtype=np.uint8)  # 4 == N_CODE
+    quals = np.zeros((rows, L_pad), dtype=np.uint8)
+    for i in range(len(counts)):
+        template = rng.integers(0, 4, size=(1, L), dtype=np.uint8)
+        codes[starts[i]:starts[i + 1], :L] = template
+    err = rng.random((rows, L)) < 0.005
+    codes[:, :L][err] = (codes[:, :L][err]
+                         + rng.integers(1, 4, size=int(err.sum()))) % 4
+    quals[:, :L] = rng.integers(25, 41, size=(rows, L), dtype=np.uint8)
+    return codes, quals, counts, starts
+
+
+def _measure_cell(kernel, host, name, dist, depth, L, keep, duplex_ab,
+                  rng, n_rows):
+    """One atlas cell: wire vs host rows/s on identical pileups."""
+    from ..ops.kernel import pad_segments
+    from ..ops.router import ROUTER
+
+    codes, quals, counts, starts = _cell_pileup(rng, dist, depth, L,
+                                                n_rows)
+    rows = len(codes)
+    n_fam = len(counts)
+
+    def wire():
+        cd, qd, st = pad_segments(codes, quals, counts)
+        t = kernel.device_call_segments_wire(cd, qd, st)
+        kernel.resolve_segments_wire(t, cd, qd, st)
+
+    dt_wire = _timeit(wire)
+    cell = {
+        "name": name, "distribution": dist, "mean_depth": depth,
+        "read_length": L, "keep_rate": keep, "duplex_ab_fraction":
+        duplex_ab, "rows": rows, "families": n_fam,
+        "device_rows_per_sec": round(rows / dt_wire, 1),
+    }
+    dt_host = _timeit(lambda: host.call_segments(codes, quals, starts))
+    # a direct engine call bypasses the router's observer — feed the live
+    # EWMA the same way the production path would (cells = rows x padded
+    # positions, the layout actually walked)
+    ROUTER.observe_host(rows * codes.shape[1], dt_host)
+    cell["host_rows_per_sec"] = round(rows / dt_host, 1)
+    cell["device_vs_host"] = round(dt_host / dt_wire, 3)
+    cell["winner"] = "device" if dt_wire <= dt_host else "host"
+    return cell
+
+
+def _crossover_depths(cells):
+    """Per-(distribution, read-length) crossover depth, interpolated
+    (log-linear in depth) between the adjacent cells where the
+    device-vs-host winner flips; None when one side wins everywhere."""
+    import math
+
+    groups = {}
+    for c in cells:
+        if not c.get("host_rows_per_sec") or not c.get(
+                "device_rows_per_sec"):
+            continue
+        groups.setdefault((c.get("distribution", "?"),
+                           c.get("read_length", 0)), []).append(c)
+    out = {}
+    for (dist, L), grp in sorted(groups.items()):
+        grp.sort(key=lambda c: c.get("mean_depth", 0))
+        cross = None
+        for a, b in zip(grp, grp[1:]):
+            # > 1 == device wins (equal rows each side, so the wall ratio
+            # is the rows/s ratio; replayed cells carry only the rates)
+            ra = a["device_rows_per_sec"] / a["host_rows_per_sec"]
+            rb = b["device_rows_per_sec"] / b["host_rows_per_sec"]
+            if (ra - 1.0) * (rb - 1.0) < 0:
+                la, lb = math.log(a["mean_depth"]), math.log(
+                    b["mean_depth"])
+                f = (0.0 - math.log(ra)) / (math.log(rb) - math.log(ra))
+                cross = round(math.exp(la + f * (lb - la)), 2)
+                break
+        out[f"{dist}_L{L}"] = {
+            "crossover_depth": cross,
+            "winner_below": grp[0].get("winner"),
+            "winner_above": grp[-1].get("winner"),
+            "depths_measured": [c.get("mean_depth") for c in grp],
+        }
+    return out
+
+
+def _bench_choosers(quick, device="cuda"):
+    """Elementwise device-vs-host seconds-per-mcell for the two
+    AdaptiveChooser stages. The duplex/CODEC combines are elementwise
+    select/min kernels over (candidates, L) arrays; this times a
+    representative select+min on each side at a serve-realistic size —
+    K8 (``ops/tune_combine``) on ``device`` against the same numpy
+    expression on the host."""
+    import numpy as np
+    import torch
+
+    from ..ops.tune_combine import tune_combine
+
+    n, L = (512, 100) if quick else (4096, 150)
+    cells = n * L
+    a = np.random.default_rng(5).integers(0, 41, size=(n, L),
+                                          dtype=np.uint8)
+    b = np.random.default_rng(6).integers(0, 41, size=(n, L),
+                                          dtype=np.uint8)
+    da = torch.from_numpy(a).to(device)
+    db = torch.from_numpy(b).to(device)
+
+    def dev_combine():
+        tune_combine(da, db)
+        if da.is_cuda:
+            torch.cuda.synchronize(da.device)
+
+    dt_dev = _timeit(dev_combine)
+    dt_host = _timeit(lambda: np.where(
+        a == b, np.minimum(a, b) + 3,
+        np.maximum(a, b) - np.minimum(a, b)))
+    pair = {"device_s_per_mcell": round(dt_dev / cells * 1e6, 6),
+            "host_s_per_mcell": round(dt_host / cells * 1e6, 6)}
+    return {"duplex_combine": dict(pair), "codec_combine": dict(pair)}
+
+
+def _derive_priors(cells, router_snap, choosers, keep_rates):
+    """Profile priors from the post-sweep router snapshot, falling back
+    to direct cell timings where a live EWMA never got fed."""
+    router = {}
+    if router_snap.get("link_samples", 0) > 0:
+        router["link_mbps"] = router_snap["link_mbps"]
+        router["overhead_s"] = router_snap["overhead_s"]
+        router["dispatch_wall_s"] = router_snap["dispatch_wall_s"]
+    if router_snap.get("host_samples", 0) > 0:
+        router["host_mcells_per_s"] = router_snap["host_mcells_per_s"]
+    elif cells:
+        hosts = [c["host_rows_per_sec"] * c["read_length"] / 1e6
+                 for c in cells if "host_rows_per_sec" in c]
+        if hosts:
+            router["host_mcells_per_s"] = round(
+                sorted(hosts)[len(hosts) // 2], 3)
+    for n, me in (router_snap.get("mesh") or {}).items():
+        router.setdefault("mesh", {})[n] = {
+            k: me[k] for k in ("link_mbps", "overhead_s",
+                               "dispatch_wall_s") if k in me}
+    if keep_rates:
+        router["filter_keep_rate"] = round(
+            sum(keep_rates) / len(keep_rates), 4)
+    priors = {"router": {k: v for k, v in router.items() if v is not None}}
+    if choosers:
+        priors["choosers"] = choosers
+    if cells:
+        priors["crossover"] = [
+            {"name": c["name"], "winner": c["winner"],
+             "device_rows_per_sec": c["device_rows_per_sec"],
+             "host_rows_per_sec": c.get("host_rows_per_sec")}
+            for c in cells]
+    return priors
+
+
+def _derive_knobs(router_priors, quick, device=None):
+    """Measured walls -> knob values, with documented heuristics.
+
+    - coalesce window: holding a batch longer than one per-dispatch
+      overhead can only lose (ops/coalesce.py prices exactly this), so
+      the window IS the measured overhead, clamped to [0.5, 20] ms.
+    - feeder depth: when the dispatch wall dwarfs the fixed overhead the
+      link stays busy with depth 2; an overhead-dominated wall hides
+      latency behind one more in-flight upload. Clamped [2, 4].
+    - mesh: ``device`` ``"cuda"``: 'auto' only when more than one card is
+      visible, else 'off'; ``"cpu"``: 'off'; None: no mesh knob.
+    """
+    knobs = {}
+    overhead = router_priors.get("overhead_s")
+    wall = router_priors.get("dispatch_wall_s")
+    if overhead is not None and overhead > 0:
+        knobs["coalesce_window_ms"] = round(
+            min(max(overhead * 1e3, 0.5), 20.0), 3)
+        if wall:
+            knobs["feeder_depth"] = int(
+                min(max(2 + round(overhead / wall), 2), 4))
+    if device == "cuda":
+        import torch
+
+        knobs["mesh"] = "auto" if torch.cuda.device_count() > 1 else "off"
+    elif device == "cpu":
+        knobs["mesh"] = "off"
+    return knobs
+
+
+# ------------------------------------------------------------------ sweep
+
+
+def run_sweep(quick=False, device="cuda"):
+    """The in-process measurement pass on ``device`` (``"cuda"``: K1 and
+    K8 on the card; ``"cpu"``: their plain versions). Returns (cells,
+    router_snapshot, chooser_priors, keep_rates)."""
+    import numpy as np
+
+    from ..ops.host_kernel import HostConsensusEngine
+    from ..ops.kernel import ConsensusKernel
+    from ..ops.router import ROUTER
+    from ..ops.tables import quality_tables
+
+    tabs = quality_tables(45, 40)
+    kernel = ConsensusKernel(tabs, device=device)
+    # the port always builds its native library (a failed build raises),
+    # so every cell has both sides
+    host = HostConsensusEngine(tabs)
+    matrix = QUICK_MATRIX if quick else FULL_MATRIX
+    n_rows = QUICK_ROWS if quick else FULL_ROWS
+    rng = np.random.default_rng(11)
+    cells = []
+    for name, dist, depth, L, keep, ab in matrix:
+        log.info("tune: cell %s (dist=%s depth=%d L=%d)", name, dist,
+                 depth, L)
+        cells.append(_measure_cell(kernel, host, name, dist, depth, L,
+                                   keep, ab, rng, n_rows))
+    return (cells, ROUTER.snapshot(), _bench_choosers(quick, device),
+            [m[4] for m in matrix])
+
+
+# ----------------------------------------------------------------- replay
+
+
+def derive_from_replay(paths):
+    """Profile inputs from recorded evidence instead of a live sweep.
+
+    Accepts run-report JSONs (their ``device.routing`` snapshot — the
+    EWMAs a real run converged to) and microbench JSONs (their
+    ``tune_cells`` per-cell records). Numeric router fields are medianed
+    across reports."""
+    import statistics
+
+    routings, cells = [], []
+    for path in paths:
+        try:
+            with open(path) as f:
+                doc = json.load(f)
+        except (OSError, ValueError) as e:
+            from ..utils.knobs import knob_error
+            from .profile import ProfileError
+
+            raise ProfileError(knob_error(
+                "--replay", path, f"unreadable ({e})",
+                "a run-report or microbench JSON file")) from None
+        routing = (doc.get("device") or {}).get("routing") \
+            if isinstance(doc, dict) else None
+        if routing:
+            routings.append(routing)
+        for c in (doc.get("tune_cells") or []) if isinstance(doc, dict) \
+                else []:
+            cells.append(c)
+    router = {}
+    for k in ("link_mbps", "overhead_s", "dispatch_wall_s",
+              "host_mcells_per_s", "filter_keep_rate"):
+        vals = [r[k] for r in routings
+                if isinstance(r.get(k), (int, float)) and r[k] > 0]
+        if vals:
+            router[k] = round(statistics.median(vals), 6)
+    return cells, router
+
+
+# ------------------------------------------------------------------- main
+
+
+def run_autotune(profile_path, atlas_path=None, quick=False,
+                 replay_paths=None, created_unix=None, device="cuda"):
+    """The ``tune`` verb body: sweep on ``device`` (or replay), write atlas
+    + profile, log the headline. Returns 0."""
+    from .profile import (PROFILE_SCHEMA_VERSION, fingerprint_host,
+                          write_json_output, write_profile)
+
+    created = int(created_unix if created_unix is not None else time.time())
+    fp = fingerprint_host(None if replay_paths else device)
+    if replay_paths:
+        cells, router = derive_from_replay(replay_paths)
+        chooser_priors = {}
+        keep_rates = []
+        source = "replay"
+        priors = {"router": router}
+        if cells:
+            priors["crossover"] = cells
+        router_snap = dict(router)
+    else:
+        cells, router_snap, chooser_priors, keep_rates = run_sweep(quick,
+                                                                   device)
+        priors = _derive_priors(cells, router_snap, chooser_priors,
+                                keep_rates)
+        source = "autotune"
+    knobs = _derive_knobs(priors.get("router", {}), quick, device)
+    profile = {
+        "schema_version": PROFILE_SCHEMA_VERSION,
+        "tool": "fgumi-tpu tune",
+        "created_unix": created,
+        "source": source,
+        "quick": bool(quick),
+        "fingerprint": fp,
+        "knobs": knobs,
+        "priors": priors,
+    }
+    write_profile(profile_path, profile)
+    log.info("tune: profile -> %s (%d knob(s): %s)", profile_path,
+             len(knobs), ", ".join(sorted(knobs)) or "none")
+    if atlas_path:
+        write_json_output(atlas_path, {
+            "schema_version": ATLAS_SCHEMA_VERSION,
+            "kind": "fgumi-tpu-crossover-atlas",
+            "tool": "fgumi-tpu tune",
+            "created_unix": created,
+            "source": source,
+            "quick": bool(quick),
+            "fingerprint": fp,
+            "cells": cells,
+            "crossover": _crossover_depths(cells),
+        })
+        log.info("tune: atlas -> %s (%d cell(s))", atlas_path, len(cells))
+    return 0

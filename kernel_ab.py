@@ -11,6 +11,7 @@ parent commit's: ``git show <commit>:fgumi_tpu_torch/csrc/consensus_wire.cu
     python3 kernel_ab.py --base _base/umi_hamming.cu
     python3 kernel_ab.py --base _base/strand_combine.cu
     python3 kernel_ab.py --base _base/canary.cu
+    python3 kernel_ab.py --base _base/tune_combine.cu
 
 For ``consensus_wire.cu`` (K1, K1-f, K1-r and K1-p2; K1-r and K1-p2 only
 where both builds have them):
@@ -88,6 +89,15 @@ swapped) on the health monitor's 1 MiB payload (zeros and seeded random
 bytes) and on 1 MiB + 13 bytes (the tail path); requires equal sums, and
 times both in turns beside the byte bound (a launch's latency sets K7's
 time at this size).
+
+For ``tune_combine.cu`` (K8, the tuner's elementwise combine): builds both
+sources as above, binds each build's exports with ``ops/tune_combine.bind``
+and calls it through the port's wrapper (``tune_combine.tune_combine``,
+the module's ``_LIB`` swapped) on ``chip_smoke.py``'s inputs at the sweep's
+two shapes, (512, 100) and (4096, 150) (``chip_smoke.tune_combine_inputs``:
+the chooser bench's arrays, random bytes, the uint8 wrap, an unaligned
+view); requires byte-identical outputs, and times both in turns on the
+bench's arrays beside the 3-byte-a-cell bound.
 """
 
 import argparse
@@ -354,6 +364,43 @@ def canary_ab(libs, dev, summary):
             kind: [t["device_ms"] for t in ts] for kind, ts in times.items()}
 
 
+def tune_combine_ab(libs, dev, summary):
+    """K8 of both builds on the tune phase's inputs: byte-identical
+    outputs, timed in turns on the chooser bench's arrays."""
+    import torch
+
+    from fgumi_tpu_torch.ops import tune_combine as TC
+
+    for n, L in S.TUNE_SHAPES:
+        inputs = S.tune_combine_inputs(n, L, dev)
+        for name, (x, y) in inputs.items():
+            runs = {k: on(lib, lambda x=x, y=y: TC.tune_combine(x, y), TC)
+                    for k, lib in libs.items()}
+            a, b = runs["base"](), runs["new"]()
+            torch.cuda.synchronize()
+            S.check(torch.equal(a, b), f"K8 {name} {n}x{L}: outputs differ "
+                                       "between the builds")
+        print(f"K8 {n}x{L}: outputs byte-identical between base and new on "
+              f"{', '.join(inputs)}", flush=True)
+        x, y = inputs["sweep"]
+        runs = {k: on(lib, lambda: TC.tune_combine(x, y), TC)
+                for k, lib in libs.items()}
+        times = {"base": [], "new": []}
+        for _ in range(TURNS):
+            for kind in ("base", "new", "new", "base"):
+                ms, seen = S.device_ms(runs[kind],
+                                       kernel="tune_combine_kernel")
+                times[kind].append({"device_ms": ms, "profiled": seen,
+                                    "loop_ms": S.loop_ms(runs[kind])})
+        key = f"{n}x{L}"
+        print("ab " + json.dumps({
+            "shape": key, "kernel": "K8",
+            "bound_ms": 3 * n * L / S.HBM_BYTES_PER_S * 1e3, **times}),
+            flush=True)
+        summary["times"][f"K8 {key}"] = {
+            kind: [t["device_ms"] for t in ts] for kind, ts in times.items()}
+
+
 CODEC_STATS = ("wall_s", "combine_s", "device_s", "host_s")
 _BUILD_ALL = ("from fgumi_tpu_torch import native; "
               "from fgumi_tpu_torch.ops import cuda_kernel; "
@@ -515,7 +562,8 @@ def main():
     print(smi, flush=True)
     dev = torch.device("cuda", 0)
     base_name = os.path.basename(args.base)
-    name = next((n for n in ("umi_hamming", "strand_combine", "canary")
+    name = next((n for n in ("umi_hamming", "strand_combine", "canary",
+                             "tune_combine")
                  if base_name.startswith(n)), "consensus_wire")
     hamming = name == "umi_hamming"
     srcs = {"base": args.base, "new": cuda_kernel.SOURCES[name]}
@@ -540,6 +588,13 @@ def main():
 
             canary_ab({k: canary.bind(ctypes.CDLL(p))
                        for k, p in paths.items()}, dev, summary)
+            print(json.dumps(summary), flush=True)
+            return
+        if name == "tune_combine":
+            from fgumi_tpu_torch.ops import tune_combine
+
+            tune_combine_ab({k: tune_combine.bind(ctypes.CDLL(p))
+                             for k, p in paths.items()}, dev, summary)
             print(json.dumps(summary), flush=True)
             return
         if name == "strand_combine":

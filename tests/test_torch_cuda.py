@@ -1334,3 +1334,49 @@ def test_serve_canary_on_cuda(cuda_dev, tmp_path):
         svc.close()
         shutil.rmtree(d, ignore_errors=True)
         breaker.BREAKER.reset()
+
+
+@pytest.mark.parametrize("shape", [(512, 100), (4096, 150), (37, 99),
+                                   (1, 1), (1, 17)])
+def test_tune_combine_kernel_matches_plain(cuda_dev, shape):
+    """K8 against its plain version and numpy's expression on the card,
+    exactly: the chooser bench's arrays, random bytes, the uint8 wrap of
+    min + 3 and a view 1 byte past a 16-byte boundary (the byte path); the
+    16-byte words' tail at the odd shapes."""
+    import chip_smoke
+    from fgumi_tpu_torch.ops import tune_combine as TC
+
+    for name, (x, y) in chip_smoke.tune_combine_inputs(*shape,
+                                                       cuda_dev).items():
+        launches = TC.TUNE_COMBINE_LAUNCHES
+        got = TC.tune_combine(x, y)
+        torch.cuda.synchronize()
+        assert TC.TUNE_COMBINE_LAUNCHES == launches + 1
+        assert torch.equal(got, TC.tune_combine_plain(x, y)), name
+        a, b = x.cpu().numpy(), y.cpu().numpy()
+        assert np.array_equal(got.cpu().numpy(), np.where(
+            a == b, np.minimum(a, b) + 3,
+            np.maximum(a, b) - np.minimum(a, b))), name
+
+
+def test_tune_entry_point_on_cuda(cuda_dev, tmp_path):
+    """``python -m fgumi_tpu_torch tune --quick`` on the card under
+    ``FGUMI_TPU_ROUTE=host``: exit 0, a valid profile and atlas, K1
+    launched on each of the 12 timed device calls and K8 on the chooser
+    bench's 4."""
+    from fgumi_tpu_torch.tune.profile import load_profile
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-m", "fgumi_tpu_torch", "tune", "--quick", "-o",
+         "p.json", "--atlas", "a.json"], capture_output=True, text=True,
+        env=dict(os.environ, PYTHONPATH=root, FGUMI_TPU_ROUTE="host"),
+        cwd=str(tmp_path), timeout=600)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert ("tune: 12 wire dispatches on cuda; launches consensus_wire_full "
+            "12, consensus_wire_packed2 0, tune_combine 4") in proc.stderr
+    prof = load_profile(str(tmp_path / "p.json"))
+    assert prof["fingerprint"]["torch_backend"] == "cuda"
+    atlas = json.loads((tmp_path / "a.json").read_text())
+    assert [c["name"] for c in atlas["cells"]] == [
+        "fixed3_L100", "fixed10_L100", "fixed30_L100"]

@@ -208,6 +208,36 @@ def test_dropped_dispatches_give_their_slots_back(threads):
     assert K.DEVICE_FEEDER._inflight_bytes == 0
 
 
+def test_drain_returns_after_the_feeder_thread_ended():
+    """``drain`` waits for the feeder's thread itself, not only for its
+    queue: a serve daemon's shutdown then finalizes the interpreter with
+    no thread of its launches left to wake inside the finalization (that
+    aborted the daemon now and then: SIGABRT after a clean stop). The
+    switch interval keeps this thread on the GIL after ``drain`` returns,
+    so a thread left running would still be alive at the check."""
+    import sys
+
+    feeder = K.DeviceFeeder()
+    ticket = feeder.submit(lambda: 7)
+    assert ticket.wait(2.0) == 7
+    feeder.mark_resolved(ticket)
+    thread = feeder._thread
+    assert thread is not None and thread.is_alive()
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(5.0)
+    try:
+        assert feeder.drain(timeout=10.0)
+        alive = thread.is_alive()
+    finally:
+        sys.setswitchinterval(interval)
+    assert not alive and feeder._thread is None
+    # a later submit starts a fresh thread
+    ticket = feeder.submit(lambda: 8)
+    assert ticket.wait(2.0) == 8
+    feeder.mark_resolved(ticket)
+    assert feeder.drain(timeout=10.0)
+
+
 def test_dropped_ticket_still_queued_never_runs():
     """A handle collected before its launch started: the launch is
     skipped and no slot is taken."""

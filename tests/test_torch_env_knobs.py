@@ -12,14 +12,16 @@ and 0 records for ``simplex``, ``duplex`` and ``codec``.
 
 ``FGUMI_TPU_MESH``, ``FGUMI_TPU_SP`` and ``FGUMI_TPU_PROFILE``: the values
 that build no mesh on the reference run as without the variable, a value the
-reference rejects exits 2 on both with the reference's knob line, and a mesh
-shape, a read-axis split or a profile exits 2 with "not yet ported" and
-writes nothing. ``FGUMI_TPU_XLA_PROFILE`` and ``FGUMI_TPU_SHAPE_BUCKETS``
-tune JAX alone: the port ignores them, and the JAX CLI's ``simplex`` also
-exits 0 with a bad value of either. The JAX package's native library is kept
-out (its loader is patched to report none), but where the reference rejects
-a mesh value: its ``simplex`` parses the mesh on its batch engine, so its
-library is built from its source into a pytest temporary directory there.
+reference rejects exits 2 on both with the reference's knob line (a missing
+profile's "unreadable" line too), a mesh shape or a read-axis split exits 2
+with "not yet ported" and writes nothing, and a valid profile runs with the
+JAX CLI's records under the same profile. ``FGUMI_TPU_XLA_PROFILE`` and
+``FGUMI_TPU_SHAPE_BUCKETS`` tune JAX alone: the port ignores them, and the
+JAX CLI's ``simplex`` also exits 0 with a bad value of either. The JAX
+package's native library is kept out (its loader is patched to report
+none), but where the reference rejects a mesh value: its ``simplex`` parses
+the mesh on its batch engine, so its library is built from its source into
+a pytest temporary directory there.
 """
 
 import json
@@ -32,6 +34,7 @@ from fgumi_tpu.cli import main as jax_main
 from fgumi_tpu_torch.cli import main as port_main
 from fgumi_tpu_torch.io.bam import BamReader
 from test_torch_dedup import jax_lib  # noqa: F401 (a fixture)
+from test_torch_profile import profile_state  # noqa: F401 (a fixture)
 
 
 @pytest.fixture(autouse=True)
@@ -165,13 +168,24 @@ def test_device_filter_env_pipeline_matches_jax_cli(inputs, tmp_path,
     ("FGUMI_TPU_SP", "2", 2, "not yet ported (multi-GPU)"),
     ("FGUMI_TPU_SP", "1", 0, None), ("FGUMI_TPU_SP", "0", 0, None),
     ("FGUMI_TPU_SP", "two", 0, None),
-    ("FGUMI_TPU_PROFILE", "/nonexistent.json", 2, "not yet ported"),
+    ("FGUMI_TPU_PROFILE", "/nonexistent.json", 2,
+     "unreadable (No such file or directory)"),
     ("FGUMI_TPU_PROFILE", "", 0, None),
+    ("FGUMI_TPU_PROFILE", "@valid", 0, None),
     ("FGUMI_TPU_XLA_PROFILE", "/dev/null/x", 0, None),
     ("FGUMI_TPU_SHAPE_BUCKETS", "bogus", 0, None),
 ])
 def test_global_env_forms(inputs, tmp_path, monkeypatch, caplog, request,
                           knob, value, rc, line):
+    if value == "@valid":
+        # a valid profile (its application isolated: process-once state)
+        request.getfixturevalue("profile_state")
+        value = str(tmp_path / "p.json")
+        with open(value, "w") as f:
+            json.dump({"schema_version": 1, "source": "manual",
+                       "fingerprint": {}, "knobs": {
+                           "mesh": "off", "coalesce_window_ms": 1.0,
+                           "chain_bytes": 1 << 20}}, f)
     monkeypatch.setenv(knob, value)
     got = tmp_path / "port.bam"
     caplog.clear()
@@ -196,7 +210,7 @@ def test_global_env_forms(inputs, tmp_path, monkeypatch, caplog, request,
                          str(want)]) == 2
         assert [r.getMessage() for r in caplog.records
                 if r.levelname == "ERROR"] == errors
-    elif rc == 0 and knob != "FGUMI_TPU_PROFILE":
+    elif rc == 0 and (knob != "FGUMI_TPU_PROFILE" or value):
         want = tmp_path / "jax.bam"
         assert jax_main(["simplex", "-i", inputs["grouped"], "-o",
                          str(want)]) == 0

@@ -17,9 +17,11 @@ contract of the port's global options, held against the JAX package.
   records (``serve.dispatch`` fires in the port's serve daemon:
   ``tests/test_torch_serve_daemon.py``; ``serve.coalesce`` in
   ``tests/test_torch_coalesce.py``).
-- Every global option of the reference is accepted; ``--profile``,
-  ``--mesh``, ``--xla-profile`` and ``--shape-buckets`` exit 2 with one
-  line, never argparse's usage error.
+- Every global option of the reference is accepted; ``--mesh``,
+  ``--xla-profile`` and ``--shape-buckets`` exit 2 with one line, never
+  argparse's usage error; ``--profile`` acts as on the JAX CLI: a missing
+  profile exits 2 with the reference's "unreadable" line, a valid one runs
+  and writes the JAX CLI's records.
 """
 
 import errno
@@ -36,6 +38,7 @@ from fgumi_tpu import cli as jax_cli
 from fgumi_tpu.utils import faults as jax_faults
 from fgumi_tpu_torch import cli as port_cli
 from fgumi_tpu_torch.utils import faults as port_faults
+from test_torch_profile import profile_state  # noqa: F401 (a fixture)
 
 
 @pytest.fixture(scope="module")
@@ -369,13 +372,14 @@ def test_every_reference_global_option_is_accepted():
         <= _option_strings(port_cli.build_parser())
 
 
-@pytest.mark.parametrize("flag,value,reason", [
-    ("--profile", "p.json", "not yet ported"),
-    ("--mesh", "dp2xsp1", "not yet ported"),
-    ("--xla-profile", "xp", "JAX-only"),
-    ("--shape-buckets", "1.5", "JAX-only")])
+@pytest.mark.parametrize("flag,value,reason,names", [
+    ("--profile", "p.json", "unreadable (No such file or directory)",
+     "FGUMI_TPU_PROFILE='p.json'"),
+    ("--mesh", "dp2xsp1", "not yet ported", "--mesh"),
+    ("--xla-profile", "xp", "JAX-only", "--xla-profile"),
+    ("--shape-buckets", "1.5", "JAX-only", "--shape-buckets")])
 def test_refused_global_option_exits_2_one_line(tmp_path, caplog, inputs,
-                                                flag, value, reason):
+                                                flag, value, reason, names):
     out = tmp_path / "o.bam"
     with caplog.at_level(logging.ERROR, logger="fgumi_tpu_torch"):
         rc = port_cli.main([flag, value] + _argv("simplex", inputs,
@@ -386,7 +390,35 @@ def test_refused_global_option_exits_2_one_line(tmp_path, caplog, inputs,
     errors = [r.getMessage() for r in caplog.records
               if r.levelno >= logging.ERROR]
     assert len(errors) == 1 and reason in errors[0]
-    assert flag in errors[0] and "\n" not in errors[0]
+    assert names in errors[0] and "\n" not in errors[0]
+    if flag == "--profile":
+        # a missing profile: the JAX CLI's exit and line
+        caplog.clear()
+        assert jax_cli.main([flag, value] + _argv("simplex", inputs,
+                                                  str(out))) == 2
+        assert not out.exists()
+        assert [r.getMessage() for r in caplog.records
+                if r.levelno >= logging.ERROR] == errors
+
+
+def test_valid_profile_option_runs_as_jax(tmp_path, inputs,
+                                          profile_state):  # noqa: F811
+    from fgumi_tpu_torch.io.bam import BamReader
+
+    prof = tmp_path / "p.json"
+    prof.write_text(json.dumps({
+        "schema_version": 1, "source": "manual", "fingerprint": {},
+        "knobs": {"mesh": "off", "chain_bytes": 1 << 20},
+        "priors": {"router": {"host_mcells_per_s": 40.0}}}))
+    recs = {}
+    for name, main, extra in (("port", port_cli.main, ["--device", "cpu"]),
+                              ("jax", jax_cli.main, [])):
+        out = tmp_path / f"{name}.bam"
+        assert main(["--profile", str(prof)] + _argv("simplex", inputs,
+                                                     str(out)) + extra) == 0
+        with BamReader(str(out)) as r:
+            recs[name] = [rec.data for rec in r]
+    assert recs["port"] and recs["port"] == recs["jax"]
 
 
 def test_enospc_unmapped_backstop_records_event(tmp_path, monkeypatch):

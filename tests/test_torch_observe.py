@@ -836,7 +836,7 @@ _SECTION_REASONS = {
     "device": "the JAX router's host route records no dispatch",
     # sections of components the port does not have (serving, tuner,
     # xprof, sentinel): absent on both sides for a standalone CPU run
-    "profile": "deployment profiles are not ported",
+    "profile": "no deployment profile is loaded in these runs",
     "xla_profile_dir": "JAX-only",
     "audit": "the silent-corruption sentinel is not ported",
 }
