@@ -493,11 +493,6 @@ AMPLICONS = {
 }
 GROUP_RUNS = (("amplicon_group", "adjacency"), ("amplicon_group", "edit"),
               ("amplicon_paired", "paired"))
-# the strategies whose --classic run is also made on cpu (PR 26 dropped
-# the others' to pay for the tune phase: the fast run on the same input is
-# held to the classic cuda run and to its own cpu run, so a K4 defect on
-# either engine still shows)
-GROUP_CLASSIC_CPU = ("paired",)
 # FASTQ inputs of the pipeline (simulate fastq-reads, 5 pairs a family)
 FASTQ = {"pipeline_400k": 40000, "pipeline_k4_50k": 5000}
 FASTQ_SIM = ["--family-size", "5", "--read-length", "100", "--seed", "7"]
@@ -2019,7 +2014,8 @@ GROUP_METRICS = ("family_sizes", "grouping_metrics", "position_group_sizes")
 
 
 def run_group(inp: str, out: str, device: str, strategy: str, engine: str):
-    """One ``group`` run with its ``-M`` metrics files beside ``out``."""
+    """One ``group`` run with its ``-M`` metrics files beside ``out`` (in
+    this process, or in a worker of the inputs' pool)."""
     from fgumi_tpu_torch import cli
 
     stats_path = out + ".json"
@@ -2044,18 +2040,16 @@ def metrics_files(out: str) -> dict:
     return files
 
 
-def group_case(case, strategy, inp, work, engine, classic=None,
-               cpu: bool = True):
-    """``group`` on an amplicon input: cuda run between a reset and a read
-    of the counts, then (with ``cpu``) cpu; records and ``-M`` metrics
-    files must be identical, and K4 must have run once per position group
-    (twice for paired: the forward and the strand-reversed matrix), so
-    every group reached the device threshold. The fast engine's records
-    and metrics files must also equal the ``--classic`` run's
-    (``classic``: that case's summary)."""
+def group_case(case, strategy, inp, work, engine, classic=None) -> dict:
+    """``group`` on an amplicon input on cuda, between a reset and a read of
+    the counts: K4 must have run once per position group (twice for
+    paired: the forward and the strand-reversed matrix), so every group
+    reached the device threshold. The fast engine's records and metrics
+    files must also equal the ``--classic`` run's (``classic``: that
+    case's summary). Returns the summary; :func:`group_cpu_check` then
+    holds the cpu run to it and prints it."""
     name = f"{case}_{strategy}" + ("_fast" if engine == "fast" else "")
     out_gpu = os.path.join(work, f"{name}.cuda.bam")
-    out_cpu = os.path.join(work, f"{name}.cpu.bam")
     reset_counts()
     st = run_group(inp, out_gpu, "cuda", strategy, engine)
     counts = read_counts()
@@ -2068,25 +2062,14 @@ def group_case(case, strategy, inp, work, engine, classic=None,
     check(k4 == per_group * AMPLICONS[case]["positions"],
           f"{name}: {k4} K4 launches for {AMPLICONS[case]['positions']} "
           "position groups")
-    a = records(out_gpu)
-    check(len(a) > 0, f"{name}: no records")
-    files = metrics_files(out_gpu)
-    st_cpu = run_group(inp, out_cpu, "cpu", strategy, engine) if cpu \
-        else None
-    if cpu:
-        check(a == records(out_cpu), f"{name}: cuda and cpu records differ")
-        check(st["filter"] == st_cpu["filter"]
-              and st["family_sizes"] == st_cpu["family_sizes"],
-              f"{name}: cuda and cpu metrics differ")
-        check(files == metrics_files(out_cpu),
-              f"{name}: cuda and cpu metrics files differ")
+    check(len(records(out_gpu)) > 0, f"{name}: no records")
     if classic is not None:
-        check(a == records(classic["out"]),
+        check(records(out_gpu) == records(classic["out"]),
               f"{name}: records differ from the --classic run's")
-        check(files == metrics_files(classic["out"]),
+        check(metrics_files(out_gpu) == metrics_files(classic["out"]),
               f"{name}: metrics files differ from the --classic run's")
     span = st["device_span"]
-    summary = {
+    return {
         "case": name, "engine": engine, "strategy": strategy,
         "input_reads": st["input_reads"],
         "records_out": st["records_out"],
@@ -2098,14 +2081,33 @@ def group_case(case, strategy, inp, work, engine, classic=None,
         "launches": counts, "largest_launch": span["largest"],
         "molecule_ids": sum(int(k) * v
                             for k, v in st["family_sizes"].items()),
-        "cpu_wall_s": st_cpu["wall_s"] if cpu else None,
-        "cpu_reads_per_s": (st_cpu["input_reads"] / st_cpu["wall_s"]
-                            if cpu else None),
-        "cpu_device_span": st_cpu["device_span"] if cpu else None,
-        "records_identical": True,
-        "metrics_files_identical": True}
-    print("e2e " + json.dumps(summary), flush=True)
-    summary["out"] = out_gpu
+        "out": out_gpu, "cpu_args": (inp, os.path.join(
+            work, f"{name}.cpu.bam"), "cpu", strategy, engine)}
+
+
+def group_cpu_check(summary, st_cpu) -> dict:
+    """The cpu run of a :func:`group_case` (``st_cpu``: its stats, from
+    :func:`run_group` on ``summary["cpu_args"]``): its records, metrics and
+    ``-M`` files identical to the cuda run's. Prints the summary (its
+    ``e2e`` line) and returns it."""
+    name, out_gpu, out_cpu = (summary["case"], summary["out"],
+                              summary["cpu_args"][1])
+    with open(out_gpu + ".json") as f:
+        st = json.load(f)
+    check(records(out_gpu) == records(out_cpu),
+          f"{name}: cuda and cpu records differ")
+    check(st["filter"] == st_cpu["filter"]
+          and st["family_sizes"] == st_cpu["family_sizes"],
+          f"{name}: cuda and cpu metrics differ")
+    check(metrics_files(out_gpu) == metrics_files(out_cpu),
+          f"{name}: cuda and cpu metrics files differ")
+    summary.update(
+        cpu_wall_s=st_cpu["wall_s"],
+        cpu_reads_per_s=st_cpu["input_reads"] / st_cpu["wall_s"],
+        cpu_device_span=st_cpu["device_span"], records_identical=True,
+        metrics_files_identical=True)
+    print("e2e " + json.dumps({k: v for k, v in summary.items()
+                               if k not in ("out", "cpu_args")}), flush=True)
     return summary
 
 
@@ -2126,17 +2128,33 @@ def e2e_phase(paths, work):
     return out
 
 
-def group_phase(paths, work):
+def group_phase(paths, work) -> tuple:
     """Each amplicon case on ``--classic`` and then on the fast engine
-    (the default), which is held to the classic run."""
-    out = {}
+    (the default), which is held to the classic run; the fast runs also on
+    cpu here. Returns (the summaries, those of the classic runs, whose cpu
+    runs go to the inputs' pool later: :func:`group_classic_cpu`)."""
+    out, classics = {}, []
     for case, strategy in GROUP_RUNS:
-        classic = group_case(case, strategy, paths[case], work, "classic",
-                             cpu=strategy in GROUP_CLASSIC_CPU)
+        classic = group_case(case, strategy, paths[case], work, "classic")
         out[f"{case}_{strategy}"] = classic
-        out[f"{case}_{strategy}_fast"] = group_case(
-            case, strategy, paths[case], work, "fast", classic)
-    return out
+        classics.append(classic)
+        fast = group_case(case, strategy, paths[case], work, "fast",
+                          classic)
+        out[f"{case}_{strategy}_fast"] = group_cpu_check(
+            fast, run_group(*fast["cpu_args"]))
+    return out, classics
+
+
+def group_classic_cpu(pool, classics) -> list:
+    """The classic runs' cpu runs in the inputs' pool (its workers are idle
+    once the inputs are built), beside the phases in this process; pass
+    the result to :func:`group_classic_cpu_finish`."""
+    return [(s, pool.submit(run_group, *s["cpu_args"])) for s in classics]
+
+
+def group_classic_cpu_finish(runs):
+    for summary, future in runs:
+        group_cpu_check(summary, future.result())
 
 
 def intermediates_dir(case, work):
@@ -4041,13 +4059,15 @@ def device_filter_env_case(inp, work, fused) -> dict:
     return summary
 
 
-def mapped_phase(paths, work, fused) -> dict:
-    """The mapped phase, one run at a time (no wall shares the host with
-    another run of this script): ``correct_1M``, ``mapped_chain_400k``,
-    then ``device_filter_env`` (``fused``: the ``fixed5_1M
-    --device-filter`` cuda run's output and launches)."""
+def mapped_phase(paths, work, fused, correct=None) -> dict:
+    """The mapped phase, one run at a time: ``correct_1M`` (or
+    ``correct``: its summary's future, where it ran in the inputs' pool
+    beside earlier phases), ``mapped_chain_400k``, then
+    ``device_filter_env`` (``fused``: the ``fixed5_1M --device-filter``
+    cuda run's output and launches)."""
     t0 = time.monotonic()
-    out = {"correct_1M": correct_1m_case(paths, work),
+    out = {"correct_1M": correct_1m_case(paths, work) if correct is None
+           else correct.result(),
            "mapped_chain_400k": mapped_chain_case(paths, work),
            "device_filter_env": device_filter_env_case(paths["fixed5_1M"],
                                                        work, fused)}
@@ -5574,7 +5594,10 @@ def start_tune(work) -> dict:
     """``tune --quick --device cuda`` into ``work`` in a child process,
     waited for on a thread (so the phases in this process go on meanwhile);
     returns its handle for :func:`tune_phase`. The child's environment is
-    this process's at the call."""
+    this process's at the call with ``FGUMI_TPU_ROUTE=host``, which sends
+    every routed batch to the native engine: the tuner's device column
+    calls the wire dispatch itself, so K1 must still launch on each timed
+    device call."""
     import threading
 
     paths = {k: os.path.join(work, f"tune_{k}.json")
@@ -5585,7 +5608,7 @@ def start_tune(work) -> dict:
     proc = subprocess.Popen(
         [sys.executable, "-m", "fgumi_tpu_torch", *argv],
         stdin=subprocess.DEVNULL, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, **_child_kwargs())
+        stderr=subprocess.PIPE, **_child_kwargs({"FGUMI_TPU_ROUTE": "host"}))
     # a check failing before the tune phase must not leave it behind
     atexit.register(lambda: proc.poll() is None and proc.kill())
     done = {}
@@ -5740,6 +5763,26 @@ def _profile_runs(prof_path, prof, refs, work) -> dict:
     return runs
 
 
+def _turns_profile(prof, prof_path, work) -> tuple:
+    """The profile the turns run under: it must carry what a port-tuned
+    profile changes, ``feeder_depth`` 2 (the port's default is 8) and a
+    coalescer window. The derived one where it does; else a copy of it
+    with those knobs (the window the derived one's, else the tuner's
+    floor, 0.5 ms), written beside it. Returns (its path, its knobs, which
+    one)."""
+    from fgumi_tpu_torch.tune.profile import write_profile
+
+    knobs = prof["knobs"]
+    if knobs.get("feeder_depth") == 2 and knobs.get("coalesce_window_ms"):
+        return prof_path, dict(knobs), "derived"
+    doc = json.loads(json.dumps(prof))
+    doc["knobs"].update(feeder_depth=2, coalesce_window_ms=knobs.get(
+        "coalesce_window_ms") or 0.5)
+    path = os.path.join(work, "tune_turns_profile.json")
+    write_profile(path, doc)
+    return path, dict(doc["knobs"]), "written"
+
+
 def _profile_turns(prof_path, refs, work) -> dict:
     """Each reference run's argv in children one at a time, without and
     with ``--profile`` in turns (plain, profile, profile, plain): the
@@ -5750,7 +5793,8 @@ def _profile_turns(prof_path, refs, work) -> dict:
         walls = {"plain": [], "profile": []}
         for i, kind in enumerate(("plain", "profile", "profile", "plain")):
             out = os.path.join(work, f"tune_turn_{name}_{i}.bam")
-            pre = ["--profile", prof_path] if kind == "profile" else []
+            pre = ["--profile", prof_path, "--run-report",
+                   out + ".report.json"] if kind == "profile" else []
             t0 = time.monotonic()
             proc = _child(pre + [command, "-i", inp, "-o", out, "--device",
                                  "cuda", "--stats-json", out + ".json",
@@ -5761,6 +5805,12 @@ def _profile_turns(prof_path, refs, work) -> dict:
                   f"{proc.returncode}: {proc.stderr[-2000:]}")
             check(records(out) == records(ref["out"]),
                   f"profile turns {name} {kind}: records differ")
+            if kind == "profile":
+                with open(out + ".report.json") as f:
+                    applied = json.load(f)["profile"]["knobs_applied"]
+                check("feeder_depth" in applied,
+                      f"profile turns {name}: feeder_depth not applied "
+                      f"({applied})")
             with open(out + ".json") as f:
                 walls[kind].append({"wall_s": json.load(f)["wall_s"],
                                     "child_s": child_s})
@@ -5799,7 +5849,9 @@ def tune_phase(work, tune, refs, report_path, dev, turns=False) -> tuple:
     out["feeder_depth"] = prof["knobs"].get("feeder_depth")
     out["profile_runs"] = _profile_runs(tune["profile"], prof, refs, work)
     if turns:
-        out["profile_turns"] = _profile_turns(tune["profile"], refs, work)
+        path, knobs, which = _turns_profile(prof, tune["profile"], work)
+        out["turns_profile"] = {"knobs": knobs, "which": which}
+        out["profile_turns"] = _profile_turns(path, refs, work)
     out["phase_s"] = time.monotonic() - t0
     print("tune " + json.dumps(out), flush=True)
     quick, full = (k8[s] for s in TUNE_SHAPES)
@@ -6096,7 +6148,7 @@ def main():
             # the phases in the order their inputs are built (fixed5_1M, the
             # longest simulation but correct_1M's, before the simplex cases)
             ready(*AMPLICONS)
-            groups = group_phase(paths, work)
+            groups, classics = group_phase(paths, work)
             ready(*FASTQ)
             pipes = pipeline_phase(paths, work)
             filter_phase(pipes["pipeline_400k"], work)
@@ -6129,11 +6181,17 @@ def main():
                 name: (argv, pipeline_run[1] if name == "pipeline" else
                        _digest(argv[argv.index("-o") + 1]), walls[name])
                 for name, argv in argvs.items()})
-            # the route phase runs while the mapped inputs finish building
+            # beside the route and tune phases, in the inputs' pool (idle
+            # since the inputs were built): the classic group runs on cpu
+            # and correct_1M, host-only runs
+            ready(*mapped_inputs)
+            classic_cpu = group_classic_cpu(pool, classics)
+            correct = pool.submit(correct_1m_case, paths, work)
             route = route_phase(paths, work, route_clean_runs(
                 paths, work, e2e, duplexes))
             _, k8 = tune_phase(work, tune, tune_refs(paths, e2e, duplexes),
                                route["R4"]["report_path"], dev)
+            group_classic_cpu_finish(classic_cpu)
             fused = e2e["fixed5_1M"]["fused"]
             paired = groups["amplicon_paired_paired_fast"]
         elif phase == "mapped":
@@ -6185,53 +6243,62 @@ def main():
             mapped = {"mapped_chain_400k": mapped_chain_case(paths, work)}
             paired = group_case("amplicon_paired", "paired",
                                 paths["amplicon_paired"], work, "fast")
+            group_cpu_check(paired, run_group(*paired["cpu_args"]))
         elif phase not in ("serve", "fleet", "route", "tune"):
             ready(*mapped_inputs)
-            mapped = mapped_phase(paths, work, fused)
+            mapped = mapped_phase(paths, work, fused,
+                                  correct if every_phase else None)
         if phase in (None, "qc"):
-            qc_phase(os.path.join(work, "mapped.zipped.bam"),
-                     os.path.join(work, "mapped.grouped.bam"), paired["out"],
-                     work)
+            # host commands alone, in the inputs' pool, beside the kernel
+            # checks at the main path's shapes below
+            qc = pool.submit(
+                qc_phase, os.path.join(work, "mapped.zipped.bam"),
+                os.path.join(work, "mapped.grouped.bam"), paired["out"],
+                work)
 
-    if every_phase:
-        entries = earlier_kernel_entries(dev, e2e, groups, pipes, duplexes,
-                                         codecs, staged, dedup)
-    elif phase in ("serve", "fleet", "route", "tune"):
-        entries = []
-    elif phase == "qc":
-        k4 = kernel_phase_main_path(
-            dev, {}, {"k4_paired": paired["largest_launch"]}, {})
-        entries = [kernel_entry(
-            "umi_hamming", k4["k4_paired"], paired["launches"]["umi_hamming"],
-            REPLACES_HAMMING, "amplicon_paired_paired_fast", HAMMING_SOURCE)]
-    else:
-        k1f = kernel_phase_main_path(
-            dev, {"fixed5_1M": {"fused": fused["largest_batch"]}}, {}, {})
-        entries = [kernel_entry(
-            "consensus_wire_filter", k1f["k1f_fixed"],
-            fused["launches"]["consensus_wire_filter"], REPLACES_FILTER,
-            "fixed5_1M_fused")]
-    if phase not in ("serve", "fleet", "route", "tune"):
-        entries.append(kernel_entry(
-            "consensus_wire_full", check_k1_mapped(
-                mapped["mapped_chain_400k"], dev),
-            mapped["mapped_chain_400k"]["launches"]["consensus_wire_full"],
-            REPLACES_FULL, "mapped_chain_400k"))
-    if phase in (None, "serve"):
-        entries.append(k7)
-    if phase in (None, "tune"):
-        entries.append(k8)
-    if phase is None:
-        # the fleet phase's launches beside each kernel's main-path count:
-        # the whales' shards (each its own --stats-json) and daemon a's K7;
-        # and the route phase's audited (R1) launches
-        for e in entries:
-            if e["name"] in fleet["launches"]:
-                e["fleet_launches"] = fleet["launches"][e["name"]]
-            for case, r1 in route["R1"].items():
-                if r1["kernel"] == e["name"]:
-                    e.setdefault("audited_launches", {})[case] = \
-                        r1["launches"]
+        if every_phase:
+            entries = earlier_kernel_entries(dev, e2e, groups, pipes,
+                                             duplexes, codecs, staged, dedup)
+        elif phase in ("serve", "fleet", "route", "tune"):
+            entries = []
+        elif phase == "qc":
+            k4 = kernel_phase_main_path(
+                dev, {}, {"k4_paired": paired["largest_launch"]}, {})
+            entries = [kernel_entry(
+                "umi_hamming", k4["k4_paired"],
+                paired["launches"]["umi_hamming"], REPLACES_HAMMING,
+                "amplicon_paired_paired_fast", HAMMING_SOURCE)]
+        else:
+            k1f = kernel_phase_main_path(
+                dev, {"fixed5_1M": {"fused": fused["largest_batch"]}}, {}, {})
+            entries = [kernel_entry(
+                "consensus_wire_filter", k1f["k1f_fixed"],
+                fused["launches"]["consensus_wire_filter"], REPLACES_FILTER,
+                "fixed5_1M_fused")]
+        if phase not in ("serve", "fleet", "route", "tune"):
+            chain = mapped["mapped_chain_400k"]
+            entries.append(kernel_entry(
+                "consensus_wire_full", check_k1_mapped(chain, dev),
+                chain["launches"]["consensus_wire_full"], REPLACES_FULL,
+                "mapped_chain_400k"))
+        if phase in (None, "serve"):
+            entries.append(k7)
+        if phase in (None, "tune"):
+            entries.append(k8)
+        if phase is None:
+            # the fleet phase's launches beside each kernel's main-path
+            # count: the whales' shards (each its own --stats-json) and
+            # daemon a's K7; and the route phase's audited (R1) launches
+            for e in entries:
+                if e["name"] in fleet["launches"]:
+                    e["fleet_launches"] = fleet["launches"][e["name"]]
+                for case, r1 in route["R1"].items():
+                    if r1["kernel"] == e["name"]:
+                        e.setdefault("audited_launches", {})[case] = \
+                            r1["launches"]
+        if phase in (None, "qc"):
+            qc.result()
+
     print(f"total {time.monotonic() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)

@@ -4141,9 +4141,6 @@ def cmd_serve(args, argv):
         # the daemon's spelling of FGUMI_TPU_COALESCE_WINDOW_MS
         os.environ["FGUMI_TPU_COALESCE_WINDOW_MS"] = \
             str(args.coalesce_window_ms)
-        from .tune import profile as _profile
-
-        _profile.release_filled("FGUMI_TPU_COALESCE_WINDOW_MS")
     if args.report_dir:
         try:
             os.makedirs(args.report_dir, exist_ok=True)
@@ -4764,8 +4761,9 @@ def _env_refusal():
         return str(e)
     if mesh is not None:
         source = ""
-        if _profile.filled_by_profile("FGUMI_TPU_MESH"):
-            source = f" (from profile {_profile.applied_info()['path']})"
+        applied = _profile.applied_info()
+        if applied is not None and "mesh" in applied["applied"]:
+            source = f" (from profile {applied['path']})"
         return f"FGUMI_TPU_MESH={spec}{source}: not yet ported (multi-GPU)"
     sp = os.environ.get("FGUMI_TPU_SP", "1")
     if sp.isdigit() and int(sp) > 1:

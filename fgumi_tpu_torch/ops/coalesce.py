@@ -19,8 +19,8 @@ into one in-flight super-batch:
 - The coalescer is opt-in on the port (the JAX package arms it in every
   serving daemon): with neither ``FGUMI_TPU_COALESCE`` nor a window
   configured (``FGUMI_TPU_COALESCE_WINDOW_MS``, which ``serve
-  --coalesce-window-ms`` sets; a window a deployment profile filled does
-  not count) it is off. Configured, or with
+  --coalesce-window-ms`` sets; a deployment profile fills it only where
+  ``FGUMI_TPU_COALESCE`` is set) it is off. Configured, or with
   ``FGUMI_TPU_COALESCE=auto``, the window arms only where it can pay: the
   serve daemon reports serving (:meth:`set_serving`) and the scheduler the
   running-job count (:meth:`set_active_jobs`); it opens at 2 or more. The
@@ -58,7 +58,6 @@ import contextlib
 import contextvars
 import logging
 import os
-import sys
 import threading
 import time
 import weakref
@@ -118,22 +117,15 @@ def _force_mode() -> str:
     """``force``, ``auto`` or ``off``: ``FGUMI_TPU_COALESCE`` when it says
     one of them, else ``auto`` where a window is configured and ``off``
     where none is (opt-in: the card's per-dispatch overhead is a few
-    milliseconds, so the priced hold rarely meets a partner). A window
-    that a deployment profile filled is not an opt-in: it is the hold
-    ``FGUMI_TPU_COALESCE`` uses once it opts in (``tune/profile.py``)."""
+    milliseconds, so the priced hold rarely meets a partner)."""
     v = os.environ.get("FGUMI_TPU_COALESCE", "").strip().lower()
     if v in ("1", "true", "on", "force"):
         return "force"
     if v in ("0", "false", "off"):
         return "off"
-    if v == "auto":
+    if v == "auto" or os.environ.get("FGUMI_TPU_COALESCE_WINDOW_MS",
+                                     "").strip():
         return "auto"
-    if os.environ.get("FGUMI_TPU_COALESCE_WINDOW_MS", "").strip():
-        profile = sys.modules.get(
-            __package__.rsplit(".", 1)[0] + ".tune.profile")
-        if profile is None or not profile.filled_by_profile(
-                "FGUMI_TPU_COALESCE_WINDOW_MS"):
-            return "auto"
     return "off"
 
 

@@ -582,6 +582,19 @@ class Balancer:
                 self._bounded_put_locked(self._dedupe_backend, dedupe,
                                          (backend, None))
 
+    def _note_id_collision(self, job_id: str, b: Backend, resp: dict):
+        """Warn when ``b`` admits a new job under an id another backend
+        already gave (daemons without ``--journal-dir``/``--fleet-id`` all
+        mint ``j-<n>``): the id map keeps the newer, so ``status`` and
+        ``cancel`` of that id reach ``b`` alone."""
+        prev = self._backend_for_job(job_id)
+        if prev is not None and prev is not b and not resp.get("deduped"):
+            log.warning("balance: backends %s and %s both minted job id "
+                        "%s; status and cancel of it now reach %s alone. "
+                        "Give each daemon behind a balancer its own "
+                        "--fleet-id (with --journal-dir)", prev.address,
+                        b.address, job_id, b.address)
+
     def _backend_for_job(self, job_id: str):
         with self._jobs_lock:
             return self._job_backend.get(job_id)
@@ -959,6 +972,7 @@ class Balancer:
                 if resp.get("ok"):
                     job = resp.get("job") or {}
                     if job.get("id"):
+                        self._note_id_collision(job["id"], b, resp)
                         self._remember_job(job["id"], b, dedupe=dedupe)
                         if not resp.get("deduped"):
                             b.note_depth((b.depth or 0) + 1)

@@ -23,11 +23,7 @@ Failure semantics:
 - A backend dying mid-shard is the fleet's ordinary takeover: the
   survivor's lease scan requeues the shard under its ORIGINAL id, the
   coordinator's status poll (mapped-backend-first, then fan-out) finds it
-  again, and the dedupe key guarantees zero double-execution. The poll
-  takes an answer only about its own shard (the job's ``shard`` stamp):
-  daemons without ``--fleet-id`` mint the same ids, so the mapped backend
-  may answer for another job of the same id, and then the other backends
-  are asked. The
+  again, and the dedupe key guarantees zero double-execution. The
   coordinator only resubmits a shard itself — under an attempt-suffixed
   dedupe key — after the id stays unknown fleet-wide past a grace window,
   i.e. when no journal takeover exists to revive it.
@@ -676,35 +672,6 @@ class ScatterCoordinator:
             return reason
         raise RuntimeError(f"shard {whale.id}-s{k} refused: {reason}")
 
-    def _shard_status(self, whale: WhaleJob, k: int, sid: str) -> dict:
-        """The fleet's answer for shard ``k``'s job ``sid``: the balancer's
-        (mapped backend first, then fan-out), unless it is about another
-        job of the same id (daemons without a fleet id mint the same ids):
-        then each healthy backend is asked for the job stamped with this
-        whale's shard ``k``. An answer without a ``shard`` field cannot
-        tell and is taken."""
-        from .client import ServeError
-
-        def other(resp):
-            job = resp.get("job") or {}
-            if not resp.get("ok") or "shard" not in job:
-                return False
-            stamp = job.get("shard") or {}
-            return (stamp.get("whale"), stamp.get("index")) != (whale.id, k)
-
-        req = {"v": protocol.PROTOCOL_VERSION, "op": "status", "id": sid}
-        resp = self.balancer._routed_job_op(req, sid)
-        if not other(resp):
-            return resp
-        for b in self.balancer._healthy_backends():
-            try:
-                answer = self.balancer._forward(b, req)
-            except ServeError:
-                continue
-            if answer.get("ok") and not other(answer):
-                return answer
-        return protocol.error_response(f"unknown job {sid}")
-
     def _poll_shard(self, whale: WhaleJob, k: int):
         """Refresh one outstanding shard from the fleet; drives the
         submitted/running/done/failed transitions and the lost-shard
@@ -713,7 +680,9 @@ class ScatterCoordinator:
 
         shard = whale.shards[k]
         sid = shard["job_id"]
-        resp = self._shard_status(whale, k, sid)
+        resp = self.balancer._routed_job_op(
+            {"v": protocol.PROTOCOL_VERSION, "op": "status", "id": sid},
+            sid)
         if resp.get("ok"):
             job = resp.get("job") or {}
             state = job.get("state")

@@ -20,12 +20,12 @@ mode) and loaded at CLI/daemon start via ``--profile`` /
   floor. Applied once per process (daemon jobs re-enter the CLI in fresh
   contexts and must not re-apply). On the port:
 
-  - ``coalesce_window_ms`` fills ``FGUMI_TPU_COALESCE_WINDOW_MS`` and is
-    listed as applied, but a window the profile filled does not arm the
-    opt-in coalescer (:func:`filled_by_profile`, read by
-    ``ops/coalesce._force_mode``): it is the hold used once
-    ``FGUMI_TPU_COALESCE`` (``auto`` or ``1``) or ``serve
-    --coalesce-window-ms`` opts in;
+  - ``coalesce_window_ms`` is listed as applied, but fills
+    ``FGUMI_TPU_COALESCE_WINDOW_MS`` only where ``FGUMI_TPU_COALESCE`` is
+    set: any set window arms the opt-in coalescer
+    (``ops/coalesce._force_mode``), so a profile alone never arms it, and
+    its window is the hold once ``FGUMI_TPU_COALESCE`` (``auto`` or ``1``)
+    opts in (``serve --coalesce-window-ms`` sets its own);
   - ``mesh`` fills ``FGUMI_TPU_MESH``; ``off`` runs, anything that asks for
     a mesh exits 2 "not yet ported (multi-GPU)" (``cli._env_refusal``
     names the profile), an explicit ``FGUMI_TPU_MESH`` wins as always;
@@ -353,9 +353,6 @@ _lock = threading.Lock()
 #: warning) a process-once event while stamp_metrics() re-stamps the
 #: outcome into every invocation's scoped registry.
 _APPLIED = None
-#: env var -> the value the applied profile filled it with (until an
-#: explicit setting takes it back: :func:`release_filled`)
-_FILLED = {}
 
 
 def applied_info():
@@ -366,28 +363,14 @@ def reset_applied_for_tests():
     global _APPLIED
     with _lock:
         _APPLIED = None
-        _FILLED.clear()
-
-
-def filled_by_profile(env: str) -> bool:
-    """Whether ``env`` still holds the value the applied profile filled it
-    with (the coalescer's opt-in and the mesh refusal tell a profile's knob
-    from the user's by it)."""
-    value = _FILLED.get(env)
-    return value is not None and os.environ.get(env) == value
-
-
-def release_filled(env: str):
-    """An explicit setting took ``env`` over (``serve
-    --coalesce-window-ms``): it no longer counts as the profile's."""
-    _FILLED.pop(env, None)
 
 
 def apply_profile(profile, path="<inline>"):
     """Apply a validated profile to this process, once.
 
     Env knobs: filled only when the env var is unset (explicit env/flags
-    win — CLI flags act later and override the env either way). Router /
+    win — CLI flags act later and override the env either way; the
+    coalescer's window only where ``FGUMI_TPU_COALESCE`` opts in). Router /
     chooser priors: seeded cold-only. Returns the application record
     (also stored for :func:`stamp_metrics`)."""
     global _APPLIED
@@ -415,9 +398,11 @@ def apply_profile(profile, path="<inline>"):
                 continue
             if os.environ.get(env) is not None:
                 record["skipped_explicit"].append(knob)
-            else:
-                os.environ[env] = _FILLED[env] = str(value)
-                record["applied"].append(knob)
+                continue
+            if knob != "coalesce_window_ms" \
+                    or os.environ.get("FGUMI_TPU_COALESCE", "").strip():
+                os.environ[env] = str(value)
+            record["applied"].append(knob)
         priors = profile.get("priors") or {}
         from ..ops import router as _router
 

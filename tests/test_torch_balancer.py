@@ -256,6 +256,55 @@ def test_routing_equals_jax_balancer(sock_dir, daemons):
     assert got[6] == "cancelled" and got[7] is False
 
 
+@pytest.mark.parametrize("fleet_ids", [False, True],
+                         ids=["no_fleet_ids", "fleet_ids"])
+def test_balancer_warns_when_two_backends_mint_one_id(sock_dir, caplog,
+                                                      fleet_ids):
+    """Daemons without fleet ids both mint ``j-1``: the balancer's id map
+    keeps the newer, so it warns and names the remedy. With distinct fleet
+    ids (as a whale's fleet runs) the ids differ, nothing is said, and each
+    id's status reaches the daemon that holds it."""
+    svcs = []
+    bal = None
+    try:
+        for name in ("a", "b"):
+            fleet = {"journal_dir": os.path.join(sock_dir, "j"),
+                     "fleet_id": name} if fleet_ids else {}
+            svc = JobService(os.path.join(sock_dir, f"{name}.sock"),
+                             workers=1, queue_limit=8, **fleet)
+            svc.start_transport()
+            svcs.append(svc)
+        bal = balancer.Balancer(f"unix:{sock_dir}/w.sock",
+                                [f"unix:{s.socket_path}" for s in svcs],
+                                poll_period_s=0.1, backend_timeout_s=10)
+        bal.poll_backends_once()
+        caplog.set_level(logging.WARNING)
+        ids = []
+        for i in range(2):
+            resp = bal.handle_request({"v": 1, "op": "submit",
+                                       "argv": ["sort", "-i", f"w{i}"]})
+            assert resp["ok"], resp
+            ids.append(resp["job"]["id"])
+        # one job on each daemon
+        assert [s.registry.get(j).argv for s, j in zip(svcs, ids)] \
+            == [["sort", "-i", "w0"], ["sort", "-i", "w1"]]
+        said = [r.getMessage() for r in caplog.records
+                if "both minted job id" in r.getMessage()]
+        if fleet_ids:
+            assert ids == ["a-j-1", "b-j-1"] and said == []
+            for i, j in enumerate(ids):
+                st = bal.handle_request({"v": 1, "op": "status", "id": j})
+                assert st["job"]["argv"] == ["sort", "-i", f"w{i}"]
+        else:
+            assert ids == ["j-1", "j-1"]
+            assert len(said) == 1 and "--fleet-id" in said[0]
+    finally:
+        if bal is not None:
+            bal.close()
+        for s in svcs:
+            s.close()
+
+
 def test_dead_backend_ejected_and_keyed_submit_relocated(sock_dir, daemons):
     bal = balancer.Balancer(f"unix:{sock_dir}/f.sock",
                             [f"unix:{s.socket_path}" for s in daemons],

@@ -36,8 +36,10 @@ import fgumi_tpu.native as jax_native
 import fgumi_tpu.native.batch as jax_native_batch
 from fgumi_tpu import cli as jax_cli
 from fgumi_tpu.utils import faults as jax_faults
+from fgumi_tpu.utils.governor import GOVERNOR as jax_governor
 from fgumi_tpu_torch import cli as port_cli
 from fgumi_tpu_torch.utils import faults as port_faults
+from fgumi_tpu_torch.utils.governor import GOVERNOR as port_governor
 from test_torch_profile import profile_state  # noqa: F401 (a fixture)
 
 
@@ -113,6 +115,11 @@ def _outcome(mod, point, payload):
     (0.3, None, 0), (0.05, None, 11), (1.0, 600, 3), (0.5, 100, 7)])
 def test_fire_triggers_and_corrupts_like_jax(monkeypatch, point, kind, prob,
                                              count, seed):
+    # an earlier CLI run in this process left the governors' sampling
+    # threads running: each tick fires governor.sample on its own and
+    # would draw from the streams compared here
+    port_governor.stop()
+    jax_governor.stop()
     spec = f"{point}:{kind}:{prob}" + ("" if count is None else f":{count}")
     monkeypatch.setenv("FGUMI_TPU_FAULT", spec)
     monkeypatch.setenv("FGUMI_TPU_FAULT_SEED", str(seed))

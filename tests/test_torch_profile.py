@@ -13,9 +13,10 @@ against the JAX package's (``fgumi_tpu.tune.profile``).
   ``profile`` section.
 - Profiles are interchangeable: the JAX package's ``tune --replay`` output
   and its ``write_profile`` documents load and apply on the port.
-- The coalescer stays opt-in: a window the profile fills arms nothing;
-  ``FGUMI_TPU_COALESCE=auto|1`` (or ``serve --coalesce-window-ms``) opts in
-  and the profile's window is the hold.
+- The coalescer stays opt-in: a profile's window is listed as applied but
+  fills the variable only where ``FGUMI_TPU_COALESCE`` is set, so it arms
+  nothing alone; ``FGUMI_TPU_COALESCE=auto|1`` opts in and the profile's
+  window is the hold (``serve --coalesce-window-ms`` sets its own).
 - Through the CLI: ``simplex --device cpu`` under ``--profile`` and under
   ``FGUMI_TPU_PROFILE`` writes the records it writes without one and that
   the JAX CLI writes under the same profile; a ``mesh`` other than ``off``
@@ -39,6 +40,7 @@ import pytest
 import fgumi_tpu.native as jax_native
 import fgumi_tpu.native.batch as jax_native_batch
 from fgumi_tpu.cli import main as jax_main
+from fgumi_tpu.ops import datapath as jax_datapath
 from fgumi_tpu.ops import router as jax_router
 from fgumi_tpu.tune import profile as jax_profile
 from fgumi_tpu_torch.cli import main as port_main
@@ -58,7 +60,9 @@ def profile_state(monkeypatch):
     """No profile applied in either package, the profile's variables unset
     (and unset again afterwards, whatever an application filled), fresh
     routers and choosers in both packages, and an unconfigured port
-    feeder (its depth is read once a process)."""
+    feeder (its depth is read once a process). Afterwards the JAX
+    package's shape ladder, which reads ``FGUMI_TPU_SHAPE_BUCKETS`` once
+    (a profile run through the JAX CLI filled it), reads it again."""
     for env in PROFILE_ENV:
         monkeypatch.setenv(env, "")
         monkeypatch.delenv(env)
@@ -72,6 +76,7 @@ def profile_state(monkeypatch):
     yield
     profile.reset_applied_for_tests()
     jax_profile.reset_applied_for_tests()
+    jax_datapath.SHAPE_REGISTRY.reconfigure()
 
 
 @pytest.fixture(autouse=True)
@@ -322,8 +327,11 @@ def test_write_profile_round_trip_and_validates(tmp_path):
 def test_precedence_per_knob_equals_jax(profile_state, monkeypatch, knob,
                                         env, value):
     """An explicit variable beats the profile, which beats the default;
-    the records of both packages agree knob by knob."""
+    the records of both packages agree knob by knob (the port fills the
+    coalescer's window where ``FGUMI_TPU_COALESCE`` opts in)."""
     doc = base_profile(knobs={knob: value})
+    if knob == "coalesce_window_ms":
+        monkeypatch.setenv("FGUMI_TPU_COALESCE", "auto")
     for mod in (profile, jax_profile):
         monkeypatch.setenv(env, "explicit")
         rec = mod.apply_profile(doc, path="p")
@@ -503,15 +511,23 @@ def test_jax_written_profile_loads_on_the_port(tmp_path):
 
 def test_profile_window_does_not_arm_the_coalescer(profile_state,
                                                    monkeypatch):
+    """Alone, the profile lists its window as applied and leaves the
+    variable unset: the coalescer stays off. Where ``FGUMI_TPU_COALESCE``
+    is set at application, it fills the window, which is the hold."""
     rec = profile.apply_profile(base_profile(), "p")
     assert "coalesce_window_ms" in rec["applied"]
-    assert os.environ["FGUMI_TPU_COALESCE_WINDOW_MS"] == "5.0"
+    assert "FGUMI_TPU_COALESCE_WINDOW_MS" not in os.environ
     c = coalesce.DispatchCoalescer()
     c.set_serving(True)
     c.set_active_jobs(2)
     assert coalesce._force_mode() == "off" and not c.armed()
     for value, mode in (("auto", "auto"), ("1", "force"), ("0", "off")):
+        profile.reset_applied_for_tests()
+        monkeypatch.delenv("FGUMI_TPU_COALESCE_WINDOW_MS", raising=False)
         monkeypatch.setenv("FGUMI_TPU_COALESCE", value)
+        rec = profile.apply_profile(base_profile(), "p")
+        assert "coalesce_window_ms" in rec["applied"]
+        assert os.environ["FGUMI_TPU_COALESCE_WINDOW_MS"] == "5.0"
         assert coalesce._force_mode() == mode
         assert c.armed() == (mode != "off")
         assert coalesce.window_s() == 0.005  # the profile's hold
@@ -519,10 +535,6 @@ def test_profile_window_does_not_arm_the_coalescer(profile_state,
     # an explicit window (serve --coalesce-window-ms) opts in
     monkeypatch.setenv("FGUMI_TPU_COALESCE_WINDOW_MS", "7")
     assert coalesce._force_mode() == "auto" and c.armed()
-    monkeypatch.setenv("FGUMI_TPU_COALESCE_WINDOW_MS", "5.0")
-    assert coalesce._force_mode() == "off"
-    profile.release_filled("FGUMI_TPU_COALESCE_WINDOW_MS")
-    assert coalesce._force_mode() == "auto"
 
 
 def test_explicit_window_with_a_profile_still_arms(profile_state,

@@ -89,13 +89,17 @@ def inputs(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def fleet():
-    """Two port daemons in this process (one worker each)."""
+    """Two port daemons in this process (one worker each) with fleet ids,
+    so their job ids differ: a balancer maps each id to one backend, and
+    daemons without fleet ids both mint ``j-<n>``."""
     d = tempfile.mkdtemp(prefix="fts")
     svcs = []
     try:
         for name in ("a", "b"):
             svc = JobService(os.path.join(d, f"{name}.sock"), workers=1,
-                             queue_limit=16)
+                             queue_limit=16,
+                             journal_dir=os.path.join(d, "j"),
+                             fleet_id=name)
             svc.start()
             svcs.append(svc)
         yield d, svcs
@@ -257,57 +261,6 @@ def test_whale_gathers_into_the_standalone_bytes(inputs, fleet, tmp_path,
                for s in shown["scatter"]["shards"])
     # the shard outputs and manifests are cleaned up after the gather
     assert sorted(os.listdir(tmp_path)) == ["whale.bam"]
-
-
-class _TwoBackends:
-    """A balancer stand-in over two backends that each hold a job ``j-2``
-    (daemons without a fleet id mint the same ids): the id map points at
-    the backend holding the other whale's shard."""
-
-    def __init__(self, jobs):
-        self.jobs = jobs  # backend -> job record
-        self.asked = []
-
-    def _routed_job_op(self, req, job_id):
-        return {"ok": True, "job": self.jobs["a"]}  # the mapped backend
-
-    def _healthy_backends(self):
-        return list(self.jobs)
-
-    def _forward(self, b, req):
-        self.asked.append(b)
-        return {"ok": True, "job": self.jobs[b]}
-
-
-@pytest.mark.parametrize("theirs", [
-    {"whale": "w-other-1", "index": 0}, {"whale": "w-1", "index": 1},
-    None])
-def test_shard_poll_passes_over_another_job_of_the_same_id(theirs):
-    """Shard 0's job ``j-2`` runs on ``b`` while ``a`` holds another job
-    ``j-2`` (another whale's shard, this whale's shard 1, or a client's
-    job): the poll must not take ``a``'s state for the shard's, or the
-    gather starts before the shard has finished."""
-    plan = scatter.ScatterPlan("simplex", "o.bam", "umi", 2, None,
-                               [["simplex"], ["simplex"]], ["s0", "s1"],
-                               ["m0", "m1"])
-    whale = scatter.WhaleJob("w-1", ["simplex"], plan)
-    whale.shards[0].update(state="submitted", job_id="j-2")
-    fake = _TwoBackends({
-        "a": {"id": "j-2", "state": "done", "shard": theirs},
-        "b": {"id": "j-2", "state": "running",
-              "shard": {"whale": "w-1", "index": 0}}})
-    coord = scatter.ScatterCoordinator(fake, 2)
-    coord._poll_shard(whale, 0)
-    assert whale.shards[0]["state"] == "running"
-    fake.jobs["b"]["state"] = "done"
-    coord._poll_shard(whale, 0)
-    assert whale.shards[0]["state"] == "done"
-    # gone from every backend: unknown (the grace window), not "done"
-    whale.shards[0].update(state="submitted")
-    fake.jobs["b"] = dict(fake.jobs["a"])
-    coord._poll_shard(whale, 0)
-    assert whale.shards[0]["state"] == "submitted"
-    assert whale.shards[0]["unknown_since"] is not None
 
 
 def test_failed_shard_fails_the_whale_with_its_exit_status(inputs, fleet,
